@@ -30,7 +30,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Number of initial Mimi frames to decode and discard for cleaner onset")
     p.add_argument("--param-dtype", default="float32", choices=["float32", "bfloat16", "int8"],
                    help="Weight dtype; int8 decodes with the CUDA kernels (default: float32)")
-    p.add_argument("--device", default=None, help="torch device (default: cuda if available, else cpu)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default: cuda; fails without a GPU unless --device cpu is given)")
     p.add_argument("--verbose", "-V", action="store_true", help="Verbose logging")
     return p
 

@@ -11,9 +11,12 @@ pocket_tts_mlx/models/flow_lm.py:31-142).
 State is {"transformer": {"layers": [{"k", "v", "slot_pos"}], "widx": int},
 "pos": [int per stream]}: the slot-major caches and the one `slot_pos`
 tensor all layers share live on the device and update in place; the write
-index and the stream positions are host integers. Int8 models carry packed
-kernel weights under params["fused_backbone"] (and "fused_flow"), and B=1
-decode steps then run ops/fused_backbone.fused_backbone_step.
+index and the stream positions are host integers. An int8 cache adds
+per-layer `k_scale` / `v_scale` [B, C], moved like `slot_pos`. Int8 models
+carry packed kernel weights under params["fused_backbone"] (and
+"fused_flow"), and B=1 decode steps over a bf16 cache then run
+ops/fused_backbone.fused_backbone_step; batch steps (B > 1) attend through
+ops/batch_attention.batch_decode_attention.
 """
 
 from __future__ import annotations
@@ -126,28 +129,36 @@ class FlowLMModel:
         self,
         params: Params,
         state: State,
-        latent: torch.Tensor,  # [B, ldim] previous latent (ignored at BOS)
-        is_bos: bool,
+        latent: torch.Tensor,  # [B, ldim] previous latent (ignored where is_bos)
+        is_bos,  # bool for the whole batch, or bool tensor [B]
         noise: torch.Tensor,  # [B, ldim] flow starting noise (temperature applied)
         lsd_decode_steps: int,
         eos_threshold: float,
+        read_limit: Optional[int] = None,
     ) -> tuple[State, torch.Tensor, torch.Tensor]:
-        """One autoregressive step -> (state, next_latent [B, ldim], is_eos [B])."""
+        """One autoregressive step -> (state, next_latent [B, ldim], is_eos [B]).
+
+        read_limit bounds the cache rows the attention reads (every valid
+        row, this step's included, lies below it)."""
         B = latent.shape[0]
         tstate = state["transformer"]
         layers = tstate["layers"]
-        if "fused_backbone" in params and B == 1:
+        if self.fused_step_ok(params, state, B):
             h, eos_logits = fused_backbone_step(
-                params["fused_backbone"], latent.float(), is_bos,
+                params["fused_backbone"], latent.float(), bool(is_bos),
                 [l["k"] for l in layers], [l["v"] for l in layers], layers[0]["slot_pos"],
                 state["pos"][0], tstate["widx"],
             )
             tstate["widx"] += 1
         else:
-            seq = params["bos_emb"][None, :].to(latent.dtype).expand(B, -1) if is_bos else latent
+            bos = params["bos_emb"][None, :].to(latent.dtype)
+            if isinstance(is_bos, torch.Tensor):
+                seq = torch.where(is_bos.to(latent.device)[:, None], bos, latent)
+            else:
+                seq = bos.expand(B, -1) if is_bos else latent
             x = linear(seq[:, None, :], params["input_linear"]["weight"])
             positions = torch.tensor(state["pos"], dtype=torch.int32, device=latent.device)[:, None]
-            h = self.transformer(params["transformer"], x, tstate, positions)
+            h = self.transformer(params["transformer"], x, tstate, positions, read_limit=read_limit)
             h = layer_norm(h, params["out_norm"]["weight"], params["out_norm"]["bias"], eps=1e-5).float()[:, -1]
             eos_logits = linear(h, params["out_eos"]["weight"], params["out_eos"]["bias"])[:, 0]
         state["pos"] = [p + 1 for p in state["pos"]]
@@ -155,38 +166,53 @@ class FlowLMModel:
         next_latent = lsd_decode(lambda s, t, x: flow(fparams, h, s, t, x), noise, lsd_decode_steps)
         return state, next_latent, eos_logits > eos_threshold
 
+    def fused_step_ok(self, params: Params, state: State, B: int) -> bool:
+        """The JAX package's dispatch rule for the per-frame kernel: B == 1,
+        packed int8 weights, and a bf16 cache (the kernel carries no int8-KV
+        scales)."""
+        return "fused_backbone" in params and B == 1 and state["transformer"]["layers"][0]["k"].dtype != torch.int8
+
     # ------------------------------------------------------------------ state utils
 
-    def expand_state(self, state: State, capacity: int) -> State:
-        """Grow KV capacity to `capacity` (k/v pad with zeros, slot_pos with -1)."""
+    @staticmethod
+    def _map_rows(state: State, fn, widx: int) -> State:
+        """New state whose every per-row leaf ([B, C, ...]: k, v, the int8
+        scales, slot_pos) is fn(name, leaf); the one shared slot_pos is
+        mapped once and stays shared."""
         layers = state["transformer"]["layers"]
-        cur = layers[0]["k"].shape[1]
+        slot_pos = fn("slot_pos", layers[0]["slot_pos"])
+        new_layers = [
+            {name: slot_pos if name == "slot_pos" else fn(name, leaf) for name, leaf in layer.items()}
+            for layer in layers
+        ]
+        return {"transformer": {"layers": new_layers, "widx": widx}, "pos": state["pos"]}
+
+    def expand_state(self, state: State, capacity: int) -> State:
+        """Grow KV capacity to `capacity` (k/v and the int8 scales pad with
+        zeros, slot_pos with -1)."""
+        cur = self.state_capacity(state)
         if cur >= capacity:
             return state
         pad = capacity - cur
-        sp = layers[0]["slot_pos"]
-        slot_pos = torch.cat([sp, torch.full((sp.shape[0], pad), -1, dtype=sp.dtype, device=sp.device)], 1)
 
-        def grow(a):
-            return torch.cat([a, a.new_zeros((a.shape[0], pad) + tuple(a.shape[2:]))], dim=1)
+        def grow(name, a):
+            return torch.cat([a, torch.full((a.shape[0], pad) + tuple(a.shape[2:]), -1 if name == "slot_pos" else 0,
+                                            dtype=a.dtype, device=a.device)], dim=1)
 
-        new_layers = [{"k": grow(l["k"]), "v": grow(l["v"]), "slot_pos": slot_pos} for l in layers]
-        return {"transformer": {"layers": new_layers, "widx": state["transformer"]["widx"]}, "pos": state["pos"]}
+        return self._map_rows(state, grow, state["transformer"]["widx"])
 
     def compact_state(self, state: State, new_written: int) -> State:
-        """Gather each stream's valid cache rows to the front in position
-        order; `new_written` must bound max(valid positions) + 1."""
-        layers = state["transformer"]["layers"]
-        sp = layers[0]["slot_pos"]
+        """Gather each stream's valid cache rows (with their int8 scales) to
+        the front in position order; `new_written` must bound max(valid
+        positions) + 1."""
+        sp = state["transformer"]["layers"][0]["slot_pos"]
         order = torch.argsort(torch.where(sp >= 0, sp, torch.full_like(sp, 2**30)), dim=1, stable=True)
-        slot_pos = torch.gather(sp, 1, order)
 
-        def g(a):
+        def g(_, a):
             idx = order.reshape(order.shape + (1,) * (a.ndim - 2)).expand(a.shape)
             return torch.gather(a, 1, idx)
 
-        new_layers = [{"k": g(l["k"]), "v": g(l["v"]), "slot_pos": slot_pos} for l in layers]
-        return {"transformer": {"layers": new_layers, "widx": int(new_written)}, "pos": state["pos"]}
+        return self._map_rows(state, g, int(new_written))
 
     def state_capacity(self, state: State) -> int:
         return state["transformer"]["layers"][0]["k"].shape[1]

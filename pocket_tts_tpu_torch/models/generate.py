@@ -3,9 +3,10 @@ Mimi vocode of the whole segment (port of pocket_tts_tpu/models/generate.py).
 
 Dispatch follows the JAX package: a segment runs the whole-segment kernel
 (ops/fused_segment.fused_segment_decode) when B == 1, lsd_decode_steps == 1,
-the model carries packed int8 kernel weights and S % 8 == 0; otherwise it
-loops over frames with flow_lm.decode_step, whose B=1 int8 steps run the
-per-frame kernel (ops/fused_backbone.fused_backbone_step).
+the model carries packed int8 kernel weights, the cache is not int8 and
+S % 8 == 0; otherwise it loops over frames with flow_lm.decode_step, whose
+B=1 int8 steps run the per-frame kernel (ops/fused_backbone.fused_backbone_step)
+and whose batch steps attend through ops/batch_attention.batch_decode_attention.
 """
 
 from __future__ import annotations
@@ -43,9 +44,10 @@ def initial_carry(batch: int, ldim: int, frames_after_eos, max_gen, device) -> d
     }
 
 
-def segment_kernel_ok(flow_params, B: int, lsd_decode_steps: int, S: int) -> bool:
+def segment_kernel_ok(flow_lm: FlowLMModel, flow_params, flow_state, lsd_decode_steps: int, S: int) -> bool:
     """The JAX package's dispatch rule for the whole-segment kernel."""
-    return B == 1 and lsd_decode_steps == 1 and "fused_flow" in flow_params and S % 8 == 0
+    return (flow_lm.fused_step_ok(flow_params, flow_state, len(flow_state["pos"])) and lsd_decode_steps == 1
+            and "fused_flow" in flow_params and S % 8 == 0)
 
 
 def run_segment(
@@ -59,12 +61,15 @@ def run_segment(
     lsd_decode_steps: int,
     eos_threshold: float,
     emit_pcm16: bool = False,
+    read_limit: int | None = None,
 ):
     """Decode one segment -> (flow_state, mimi_state, carry, audio [B, S,
-    frame], emit [B, S] bool, all_done bool tensor). Caches update in place."""
+    frame], emit [B, S] bool, all_done bool tensor). Caches update in place.
+    read_limit bounds the cache rows the per-frame attention reads; the
+    caller guarantees widx + S <= read_limit."""
     flow_params, mimi_params = params["flow_lm"], params["mimi"]
     S, B, _ = noise_seq.shape
-    if segment_kernel_ok(flow_params, B, lsd_decode_steps, S):
+    if segment_kernel_ok(flow_lm, flow_params, flow_state, lsd_decode_steps, S):
         tstate = flow_state["transformer"]
         layers = tstate["layers"]
         lat, eos_logits = fused_segment_decode(
@@ -81,7 +86,8 @@ def run_segment(
         lat_list, eos_list = [], []
         for i in range(S):
             flow_state, latent, is_eos = flow_lm.decode_step(
-                flow_params, flow_state, latent, is_bos, noise_seq[i], lsd_decode_steps, eos_threshold
+                flow_params, flow_state, latent, is_bos, noise_seq[i], lsd_decode_steps, eos_threshold,
+                read_limit=read_limit,
             )
             is_bos = False
             lat_list.append(latent)

@@ -1,14 +1,16 @@
-"""End-to-end TTS pipeline, single stream: text -> FlowLM decode -> Mimi
-(port of the B=1 path of pocket_tts_tpu/models/tts_model.py; reference:
-pocket_tts_mlx/models/tts_model.py:54-518).
+"""End-to-end TTS pipeline: text -> FlowLM decode -> Mimi
+(port of pocket_tts_tpu/models/tts_model.py without the engine, voice
+cloning and the mesh; reference: pocket_tts_mlx/models/tts_model.py:54-518).
 
-`load_model`, `get_state_for_audio_prompt`, `generate_audio` and
-`generate_audio_stream` keep the JAX package's defaults, text chunking,
-segment schedules (streaming ramp 1, 2, 4, ... to 32 frames; bulk 64-frame
-segments with a power-of-2 tail), capacity buckets, Mimi warmup, and the
-post-EOS rewind. Frames decode in segments (models/generate.run_segment);
-the host reads audio and EOS once per streamed segment and once per bulk
-utterance.
+`load_model`, `get_state_for_audio_prompt`, `generate_audio`,
+`generate_audio_stream` and `generate_audio_batch` keep the JAX package's
+defaults, text chunking, segment schedules (streaming ramp 1, 2, 4, ... to
+32 frames; bulk 64-frame segments with a power-of-2 tail), capacity
+buckets, Mimi warmup, and the post-EOS rewind. One loop serves one stream
+and B streams alike (`_generate_batch_frames`); frames decode in segments
+(models/generate.run_segment), and the host reads audio and EOS once per
+streamed segment and once per bulk generation. Batch segments read only the
+128-bucketed front of the cache that holds written rows (`read_limit`).
 
 Offline (no reachable checkpoint) the model starts from seeded random
 weights, the hash tokenizer and a synthetic voice prompt, like the JAX
@@ -21,7 +23,7 @@ import copy
 import logging
 import time
 from pathlib import Path
-from typing import Generator, Optional, Union
+from typing import Generator, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -102,8 +104,8 @@ def _bucket(n: int, bucket: int = KV_CAPACITY_BUCKET) -> int:
 
 
 class ModelState:
-    """A voice/continuation state: the FlowLM state tree, the host mirror of
-    the stream positions, and the cache write index.
+    """A voice/continuation state of one or more streams: the FlowLM state
+    tree, the host mirror of the stream positions, and the cache write index.
 
     The kernels append into the caches in place, so generation with
     copy_state=True works on a clone and leaves this state bit-identical."""
@@ -118,8 +120,16 @@ class ModelState:
         return len(self.pos)
 
 
+def _resolve_device(device) -> torch.device:
+    """The card unless the caller asks for another device; no silent CPU."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
+    return device
+
+
 class TTSModel:
-    """Text-to-speech pipeline: FlowLM + Mimi, one stream at a time."""
+    """Text-to-speech pipeline: FlowLM + Mimi, one stream or a batch."""
 
     _TOKENS_PER_SECOND_ESTIMATE = 3.0
     _GEN_SECONDS_PADDING = 2.0
@@ -127,8 +137,8 @@ class TTSModel:
 
     def __init__(self, flow_lm, mimi, params, tokenizer, config: Config, temp=DEFAULT_TEMPERATURE,
                  lsd_decode_steps=DEFAULT_LSD_DECODE_STEPS, noise_clamp=DEFAULT_NOISE_CLAMP,
-                 eos_threshold=DEFAULT_EOS_THRESHOLD, seed: int = 0, device="cpu", state_dtype=torch.float32,
-                 transfer_pcm16: bool = False):
+                 eos_threshold=DEFAULT_EOS_THRESHOLD, seed: int = 0, device="cuda", state_dtype=torch.float32,
+                 transfer_pcm16: bool = False, kv_int8: bool = False):
         self.flow_lm = flow_lm
         self.mimi = mimi
         self.params = params
@@ -142,12 +152,25 @@ class TTSModel:
         self.noise_clamp = noise_clamp
         self.eos_threshold = float(eos_threshold)
         self.config = config
-        self.device = torch.device(device)
+        self.device = _resolve_device(device)
         self.state_dtype = state_dtype  # KV caches and ring buffers
+        # int8 FlowLM KV rows with per-row scales (batch serving): half the
+        # bytes the batch decode attention reads. B=1 decodes over such a
+        # cache leave the B=1 kernels (they carry no scales).
+        self.kv_int8 = bool(kv_int8)
         self.transfer_pcm16 = bool(transfer_pcm16)
         self.random_init = False
         self._gen = torch.Generator().manual_seed(seed)
         self._warm_mimi: dict = {}
+        # Schedule of the last generation: batch size, decoded frames, cache
+        # capacity and each segment's read limit (None: the whole capacity).
+        self.last_generation: dict = {}
+
+    @property
+    def flow_state_dtype(self):
+        """Dtype of the FlowLM KV caches this model creates (int8 with
+        kv_int8, else state_dtype); Mimi's ring buffers use state_dtype."""
+        return torch.int8 if self.kv_int8 else self.state_dtype
 
     @property
     def sample_rate(self) -> int:
@@ -170,15 +193,19 @@ class TTSModel:
         *,
         seed: int = 0,
         param_dtype: str = "float32",
-        device: Union[str, torch.device, None] = None,
+        device: Union[str, torch.device, None] = "cuda",
         allow_random_init: bool = True,
         transfer_pcm16: bool = False,
+        kv_int8: bool = False,
     ) -> "TTSModel":
         """Build the model and load weights (random init, seeded, when no
         checkpoint is reachable and allow_random_init).
 
         param_dtype "float32", "bfloat16", or "int8" (bf16 serving plus
-        weight-only int8 FlowLM matmuls, decoded by the CUDA kernels)."""
+        weight-only int8 FlowLM matmuls, decoded by the CUDA kernels).
+        device: the card by default; without one this raises unless the
+        caller passes device="cpu". kv_int8: int8 FlowLM KV cache."""
+        device = _resolve_device(device)
         if str(config).endswith(".yaml"):
             cfg = load_config(Path(config))
         else:
@@ -191,18 +218,19 @@ class TTSModel:
         tokenizer = make_tokenizer(cfg.flow_lm.lookup_table.n_bins, str(cfg.flow_lm.lookup_table.tokenizer_path))
         model = cls.from_params(cfg, params, tokenizer, param_dtype, device, temp=temp,
                                 lsd_decode_steps=lsd_decode_steps, noise_clamp=noise_clamp,
-                                eos_threshold=eos_threshold, seed=seed, transfer_pcm16=transfer_pcm16)
+                                eos_threshold=eos_threshold, seed=seed, transfer_pcm16=transfer_pcm16,
+                                kv_int8=kv_int8)
         model.random_init = random_init
         return model
 
     @classmethod
-    def from_params(cls, cfg: Config, params: dict, tokenizer, param_dtype: str = "float32", device=None,
+    def from_params(cls, cfg: Config, params: dict, tokenizer, param_dtype: str = "float32", device="cuda",
                     **kwargs) -> "TTSModel":
         """Build a model from a float32 params tree: apply the serving dtype
         (with its float32 islands), int8-quantize and pack the kernel weights
-        for param_dtype "int8", and move everything to `device`."""
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
+        for param_dtype "int8", and move everything to `device` (the card
+        unless device="cpu"; raises when there is no card)."""
+        device = _resolve_device(device)
         flow_lm = FlowLMModel(cfg.flow_lm, latent_dim=cfg.mimi.quantizer.dimension, speaker_dim=cfg.mimi.seanet.dimension)
         quantize = param_dtype == "int8"
         serving = torch.bfloat16 if quantize else getattr(torch, param_dtype)
@@ -216,6 +244,11 @@ class TTSModel:
             t = cfg.flow_lm.transformer
             fl["fused_backbone"] = pack_backbone(fl, t.num_heads, float(t.max_period))
             fl["fused_flow"] = pack_flow(flow_lm.flow_net, fl["flow_net"])
+            if kwargs.get("kv_int8"):
+                logger.warning(
+                    "kv_int8=True keeps single-stream decodes off the B=1 CUDA kernels (they carry no int8-KV "
+                    "scales); use kv_int8 for batch serving, not for single-stream models."
+                )
         return cls(flow_lm, MimiModel(cfg.mimi), params, tokenizer, config=cfg, device=device,
                    state_dtype=serving, **kwargs)
 
@@ -246,9 +279,9 @@ class TTSModel:
         return self._state_from_prompt(torch.from_numpy(raw.astype(np.float32)))
 
     def _state_from_prompt(self, prompt: torch.Tensor) -> ModelState:
-        """Prefill a fresh KV cache with conditioning embeddings [1, T, dim]."""
+        """Prefill a fresh KV cache with conditioning embeddings [B, T, dim]."""
         B, T, _ = prompt.shape
-        state = self.flow_lm.init_state(B, _bucket(T), dtype=self.state_dtype, device=self.device)
+        state = self.flow_lm.init_state(B, _bucket(T), dtype=self.flow_state_dtype, device=self.device)
         with torch.no_grad():
             state = self.flow_lm.prefill(self.params["flow_lm"], state, prompt.float().to(self.device), [T] * B)
         return ModelState(state, [T] * B, written=T)
@@ -288,34 +321,82 @@ class TTSModel:
     ) -> Generator[np.ndarray, None, None]:
         """Yield 80 ms frames (1920 float32 samples) as they decode."""
         if model_state.batch_size != 1:
-            raise ValueError("the PyTorch port decodes one stream at a time")
+            raise ValueError("generate_audio_stream decodes one stream; use generate_audio_batch for batched states")
         for chunk in split_into_best_sentences(self.tokenizer, text_to_generate, max_tokens):
             _, guess = prepare_text_prompt(chunk)
             fae = frames_after_eos if frames_after_eos is not None else guess + 2
-            yield from self._generate_chunk(model_state, chunk, fae, copy_state, warmup_frames, _bulk)
+            for frames, _ in self._generate_batch_frames(model_state, [chunk], [fae], copy_state, warmup_frames,
+                                                         _bulk):
+                yield frames[0]
 
-    def _warm_mimi_state(self, max_chunk: int, warmup_frames: int) -> dict:
-        """Mimi decode state after `warmup_frames` zero-latent frames (cached;
-        voice-independent), cloned for each generation."""
-        key = (max_chunk, warmup_frames)
+    def generate_audio_batch(
+        self,
+        model_states: Union[ModelState, Sequence[ModelState]],
+        texts: Sequence[str],
+        frames_after_eos: Optional[int] = None,
+        warmup_frames: int = _MIMI_WARMUP_FRAMES,
+        trim_start_ms: int = 0,
+        fade_in_ms: int = 0,
+    ) -> list[np.ndarray]:
+        """Decode many utterances together, one 1-D float32 waveform each.
+
+        Each text must fit in one chunk (use generate_audio for long
+        scripts). model_states is one shared voice, one voice per stream, or
+        an already stacked state; it is left as it was."""
+        if isinstance(model_states, ModelState):
+            if model_states.batch_size == len(texts):
+                batched = model_states
+            elif model_states.batch_size == 1:
+                batched = stack_states(self.flow_lm, [model_states] * len(texts))
+            else:
+                raise ValueError(f"model_states has batch {model_states.batch_size} but got {len(texts)} texts")
+        else:
+            if len(model_states) != len(texts):
+                raise ValueError(f"got {len(model_states)} voice states for {len(texts)} texts")
+            batched = stack_states(self.flow_lm, list(model_states))
+        fae = [frames_after_eos if frames_after_eos is not None else prepare_text_prompt(t)[1] + 2 for t in texts]
+        per_stream: list[list[np.ndarray]] = [[] for _ in texts]
+        for frames, emit in self._generate_batch_frames(batched, list(texts), fae, True, warmup_frames, True):
+            for b in np.flatnonzero(emit):
+                per_stream[b].append(frames[b])
+        return [
+            self._postprocess_audio_start(
+                np.concatenate(chunks, axis=0) if chunks else np.zeros(0, dtype=np.float32), trim_start_ms, fade_in_ms
+            )
+            for chunks in per_stream
+        ]
+
+    def _warm_mimi_state(self, batch: int, max_chunk: int, warmup_frames: int) -> dict:
+        """Mimi decode state of `batch` streams after `warmup_frames`
+        zero-latent frames (cached; voice-independent), cloned for each
+        generation."""
+        key = (batch, max_chunk, warmup_frames)
         if key not in self._warm_mimi:
-            state = self.mimi.init_decode_state(1, self.state_dtype, max_chunk, self.device)
-            zero = torch.zeros(1, 1, self.flow_lm.ldim, device=self.device)
+            state = self.mimi.init_decode_state(batch, self.state_dtype, max_chunk, self.device)
+            zero = torch.zeros(batch, 1, self.flow_lm.ldim, device=self.device)
             for _ in range(warmup_frames):
                 _, state = decode_mimi_chunk(self.params["flow_lm"], self.params["mimi"], self.mimi, zero, state)
             self._warm_mimi[key] = state
         return copy.deepcopy(self._warm_mimi[key])
 
     @torch.no_grad()
-    def _generate_chunk(self, model_state: ModelState, text: str, frames_after_eos: int, copy_state: bool,
-                        warmup_frames: int, bulk: bool) -> Generator[np.ndarray, None, None]:
-        tokens = self.conditioner.prepare(text).tokens[0].tolist()
-        n_tok = len(tokens)
-        max_gen = estimate_max_gen_len(
-            n_tok, self.config.mimi.frame_rate, self._TOKENS_PER_SECOND_ESTIMATE, self._GEN_SECONDS_PADDING
-        )
-        t_pad = _bucket(n_tok, 32)
-        sched = _bulk_schedule(max_gen) if bulk else _stream_schedule(max_gen, DEFAULT_SEGMENT_FRAMES)
+    def _generate_batch_frames(self, model_state: ModelState, texts: Sequence[str], frames_after_eos: Sequence[int],
+                               copy_state: bool, warmup_frames: int, bulk: bool):
+        """The decode loop of B = model_state.batch_size streams, one text
+        each. Yields (frames [B, frame] float32, emit [B] bool) for every
+        decoded step where some stream emits."""
+        B = model_state.batch_size
+        if len(texts) != B or len(frames_after_eos) != B:
+            raise ValueError(f"model_state holds {B} stream(s) but got {len(texts)} text(s)")
+        token_lists = [self.conditioner.prepare(t).tokens[0].tolist() for t in texts]
+        n_tok = [len(t) for t in token_lists]
+        max_gen = [
+            estimate_max_gen_len(n, self.config.mimi.frame_rate, self._TOKENS_PER_SECOND_ESTIMATE,
+                                 self._GEN_SECONDS_PADDING)
+            for n in n_tok
+        ]
+        t_pad = _bucket(max(n_tok), 32)
+        sched = _bulk_schedule(max(max_gen)) if bulk else _stream_schedule(max(max_gen), DEFAULT_SEGMENT_FRAMES)
         budget = sum(sched)
 
         # deepcopy keeps the layers' one shared slot_pos tensor shared.
@@ -331,67 +412,81 @@ class TTSModel:
                 tree = self.flow_lm.compact_state(tree, compact_written)
                 written, required = compact_written, required_after
         tree = self.flow_lm.expand_state(tree, _bucket(required))
+        capacity = self.flow_lm.state_capacity(tree)
         if not copy_state:
             model_state.tree, model_state.written = tree, written
 
         max_chunk = max(sched, default=1) if bulk else _stream_steady(DEFAULT_SEGMENT_FRAMES)
-        mimi_state = self._warm_mimi_state(max_chunk, warmup_frames)
+        mimi_state = self._warm_mimi_state(B, max_chunk, warmup_frames)
 
         t0 = time.monotonic()
-        tok = torch.zeros(1, t_pad, dtype=torch.long)
-        tok[0, :n_tok] = torch.tensor(tokens, dtype=torch.long)
+        tok = torch.zeros(B, t_pad, dtype=torch.long)
+        for b, toks in enumerate(token_lists):
+            tok[b, : len(toks)] = torch.tensor(toks, dtype=torch.long)
         fl = self.params["flow_lm"]
-        tree = self.flow_lm.prefill(fl, tree, self.flow_lm.embed_text(fl, tok.to(self.device)), [n_tok])
-        carry = initial_carry(1, self.flow_lm.ldim, [frames_after_eos], [max_gen], self.device)
+        tree = self.flow_lm.prefill(fl, tree, self.flow_lm.embed_text(fl, tok.to(self.device)), n_tok)
+        carry = initial_carry(B, self.flow_lm.ldim, list(frames_after_eos), max_gen, self.device)
 
+        # Read-limit buckets (B > 1): each segment's attention reads only
+        # the 128-bucketed front of the cache that holds written rows.
+        written_host = written + t_pad
+        read_limits = []
         dispatched = 0
         pending = []  # bulk: (audio, emit) kept on the device until the end
         emitted_samples = 0
         for seg in sched:
-            noise = sample_noise(self._gen, (seg, 1, self.flow_lm.ldim), self.temp, self.noise_clamp, self.device)
+            read_limit = None
+            if B > 1:
+                r = _bucket(written_host + seg)
+                read_limit = r if r < capacity else None
+            read_limits.append(read_limit)
+            written_host += seg
+            noise = sample_noise(self._gen, (seg, B, self.flow_lm.ldim), self.temp, self.noise_clamp, self.device)
             tree, mimi_state, carry, audio, emit, done = run_segment(
                 self.flow_lm, self.mimi, self.params, tree, mimi_state, carry, noise,
-                self.lsd_decode_steps, self.eos_threshold, emit_pcm16=self.transfer_pcm16,
+                self.lsd_decode_steps, self.eos_threshold, emit_pcm16=self.transfer_pcm16, read_limit=read_limit,
             )
             dispatched += seg
             if bulk:
                 pending.append((audio, emit))
                 continue
-            audio_np, emit_np, done_np = audio.cpu().numpy(), emit.cpu().numpy(), bool(done)
-            for frame in self._emitted(audio_np, emit_np):
-                emitted_samples += frame.shape[-1]
-                yield frame
-            if done_np:
+            for frames, emit_s in self._emitted(audio.cpu().numpy(), emit.cpu().numpy()):
+                emitted_samples += int(emit_s.sum()) * frames.shape[-1]
+                yield frames, emit_s
+            if bool(done):
                 break
         for audio, emit in pending:
-            for frame in self._emitted(audio.cpu().numpy(), emit.cpu().numpy()):
-                emitted_samples += frame.shape[-1]
-                yield frame
+            for frames, emit_s in self._emitted(audio.cpu().numpy(), emit.cpu().numpy()):
+                emitted_samples += int(emit_s.sum()) * frames.shape[-1]
+                yield frames, emit_s
+        self.last_generation = {"batch": B, "frames": dispatched, "capacity": capacity, "read_limits": read_limits}
 
         # Continuation semantics: FlowLM ran min(eos_step + frames_after_eos
-        # + 1, max_gen) steps in the reference loop; rewind past the extra
-        # masked steps and invalidate the cache slots they wrote.
-        eos_step = int(carry["eos_step"][0])
-        steps_entered = min(eos_step + frames_after_eos + 1, max_gen, dispatched)
+        # + 1, max_gen) steps per stream in the reference loop; rewind past
+        # the extra masked steps and invalidate the cache slots they wrote.
+        eos_step = carry["eos_step"].cpu().numpy()
+        steps_entered = np.minimum(np.minimum(eos_step + np.asarray(frames_after_eos) + 1, max_gen), dispatched)
         if not copy_state:
-            new_pos = [model_state.pos[0] + n_tok + steps_entered]
+            new_pos = [int(p + n + s) for p, n, s in zip(model_state.pos, n_tok, steps_entered)]
             model_state.tree = self.flow_lm.invalidate_after(tree, new_pos)
             model_state.pos = new_pos
             model_state.written = written + t_pad + dispatched
         elapsed = time.monotonic() - t0
         logger.info(
             "Generated: %d ms of audio in %d ms so %.2fx faster than real-time",
-            emitted_samples * 1000 // self.sample_rate, int(elapsed * 1000),
-            emitted_samples / self.sample_rate / max(elapsed, 1e-9),
+            emitted_samples / B * 1000 // self.sample_rate, int(elapsed * 1000),
+            emitted_samples / B / self.sample_rate / max(elapsed, 1e-9),
         )
 
     @staticmethod
     def _emitted(audio_np: np.ndarray, emit_np: np.ndarray):
+        """(frames [B, frame], emit [B]) of each step of a segment where some
+        stream emits."""
         if audio_np.dtype == np.int16:  # transfer_pcm16: widen on the host
             audio_np = audio_np.astype(np.float32) / 32767.0
         for s in range(audio_np.shape[1]):
-            if emit_np[0, s]:
-                yield audio_np[0, s]
+            if emit_np[:, s].any():
+                yield audio_np[:, s], emit_np[:, s]
 
     def _postprocess_audio_start(self, audio: np.ndarray, trim_start_ms: int, fade_in_ms: int) -> np.ndarray:
         """Trim/fade the onset (reference: tts_model.py:446-462)."""
@@ -406,6 +501,26 @@ class TTSModel:
                 ramp = np.linspace(0.0, 1.0, fade, dtype=audio.dtype)
                 audio = np.concatenate([audio[:fade] * ramp, audio[fade:]], axis=0)
         return audio
+
+
+def stack_states(flow_lm: FlowLMModel, states: Sequence[ModelState]) -> ModelState:
+    """Stack voice states into one batched state: capacities equalised to
+    the largest, the write index aligned to the largest (rows between a
+    stream's own writes and the common index are invalid and never read),
+    positions concatenated. The inputs are left as they were."""
+    if len(states) == 1 and states[0].batch_size > 1:
+        return states[0]
+    capacity = max(flow_lm.state_capacity(s.tree) for s in states)
+    trees = [flow_lm.expand_state(s.tree, capacity)["transformer"] for s in states]
+    slot_pos = torch.cat([t["layers"][0]["slot_pos"] for t in trees])  # shared by every layer
+    layers = [
+        {name: slot_pos if name == "slot_pos" else torch.cat([t["layers"][i][name] for t in trees])
+         for name in layer}
+        for i, layer in enumerate(trees[0]["layers"])
+    ]
+    pos = [p for s in states for p in s.pos]
+    tree = {"transformer": {"layers": layers, "widx": max(t["widx"] for t in trees)}, "pos": list(pos)}
+    return ModelState(tree, pos, written=max(s.written for s in states))
 
 
 def _load_weights(params: dict, cfg: Config, allow_random_init: bool) -> bool:

@@ -7,6 +7,11 @@
   slots whose position lies in [0, p]. Appends write the cache IN PLACE at
   `widx`, clamped like the JAX package's dynamic_update_slice, so a state
   that must survive a decode is cloned first (models/tts_model.ModelState).
+  An int8 cache (batch serving) stores symmetric int8 rows with one float32
+  scale per row (`k_scale` / `v_scale`, [B, C]). Batch decode steps (T == 1,
+  B > 1) attend through ops/batch_attention.batch_decode_attention over the
+  full cache, reading its first `read_limit` rows; every other call
+  (prefill, T > 1, B == 1) runs the dense `sdpa_slots`.
 - WindowedRingAttention (Mimi codec): a shift-append ring kept ordered
   oldest -> newest; slot positions are arithmetic, and long chunks attend in
   128-query blocks over a (context + 128)-wide key band.
@@ -39,17 +44,41 @@ def _split_qkv(projected: torch.Tensor, num_heads: int):
     return packed[:, :, 0], packed[:, :, 1], packed[:, :, 2]
 
 
-def sdpa_slots(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+def sdpa_slots(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid: torch.Tensor,
+               k_scale: torch.Tensor | None = None, v_scale: torch.Tensor | None = None) -> torch.Tensor:
     """Masked softmax(q k^T / sqrt(d)) v over a slot-major cache.
 
     q [B, T, H, d]; k, v [B, S, H, d] (cache dtype); valid bool broadcastable
-    to [B, H, T, S]. Returns [B, T, H, d] in q's dtype."""
+    to [B, H, T, S]. Returns [B, T, H, d] in q's dtype. With an int8 cache,
+    k_scale / v_scale [B, S] are the per-row dequantisation scales: the
+    products take the int8 rows as bf16, the K scale multiplies the scores
+    and the V scale the softmax weights, as _sdpa_slots of the JAX package."""
+    if (k.dtype == torch.int8) != (k_scale is not None and v_scale is not None):
+        raise ValueError("int8 KV rows need k_scale and v_scale, and only they do")
     d = q.shape[-1]
-    scores = torch.einsum("bthd,bshd->bhts", q.to(k.dtype).float(), k.float()) * (1.0 / math.sqrt(d))
+    cd = torch.bfloat16 if k.dtype == torch.int8 else k.dtype
+    scores = torch.einsum("bthd,bshd->bhts", q.to(cd).float(), k.to(cd).float())
+    if k_scale is not None:
+        scores = scores * (k_scale * (1.0 / math.sqrt(d)))[:, None, None, :]
+    else:
+        scores = scores * (1.0 / math.sqrt(d))
     scores = torch.where(valid, scores, torch.full_like(scores, _NEG_INF))
     weights = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhts,bshd->bthd", weights.to(v.dtype).float(), v.float())
+    if v_scale is not None:
+        weights = weights * v_scale[:, None, None, :]
+    out = torch.einsum("bhts,bshd->bthd", weights.to(cd).float(), v.to(cd).float())
     return out.to(q.dtype)
+
+
+def quantize_kv_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row int8 quantisation of [B, T, H, d] K/V rows: one
+    absmax scale per row over its H*d values (1 for an all-zero row), codes
+    rounded half to even and clipped to +-127 -> (int8 codes, float32 [B, T])."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=(2, 3))
+    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    codes = torch.clamp(torch.round(xf / scale[:, :, None, None]), -127, 127).to(torch.int8)
+    return codes, scale
 
 
 def _uniform(gen: torch.Generator, shape, bound: float, dtype) -> torch.Tensor:
@@ -80,12 +109,17 @@ class CausalKVAttention:
         return _init_proj_params(gen, self.embed_dim, dtype)
 
     def init_state(self, batch_size: int, capacity: int, dtype=torch.float32, device="cpu") -> State:
+        """dtype=torch.int8 gives the int8 cache with its per-row scales."""
         shape = (batch_size, capacity, self.num_heads, self.head_dim)
-        return {
+        state = {
             "k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
             "slot_pos": torch.full((batch_size, capacity), -1, dtype=torch.int32, device=device),
         }
+        if dtype == torch.int8:
+            state["k_scale"] = torch.zeros((batch_size, capacity), dtype=torch.float32, device=device)
+            state["v_scale"] = torch.zeros((batch_size, capacity), dtype=torch.float32, device=device)
+        return state
 
     def __call__(
         self,
@@ -95,19 +129,45 @@ class CausalKVAttention:
         positions: torch.Tensor,  # int32 [B, T]: absolute positions, -1 = padding
         widx: int,
         rope_cache: tuple,
+        read_limit: int | None = None,
     ) -> torch.Tensor:
-        """Append this call's T rows at widx (in place) and attend."""
+        """Append this call's T rows at widx (in place) and attend.
+
+        read_limit bounds the cache rows attention reads to the first
+        R = max(8, min(read_limit, C)); the caller guarantees that every
+        valid row, this call's included, lies below it."""
         B, T, _ = x.shape
         q, k, v = _split_qkv(qkv_proj(x, params["in_proj"]["weight"]), self.num_heads)
         q, k = apply_rope(q, k, rope_cache)
         C = state["k"].shape[1]
         w = min(max(int(widx), 0), C - T)  # dynamic_update_slice clamps its start
-        state["k"][:, w : w + T] = k.to(state["k"].dtype)
-        state["v"][:, w : w + T] = v.to(state["v"].dtype)
+        int8_kv = state["k"].dtype == torch.int8
+        if int8_kv:
+            k_codes, k_scale = quantize_kv_rows(k)
+            v_codes, v_scale = quantize_kv_rows(v)
+            state["k"][:, w : w + T] = k_codes
+            state["v"][:, w : w + T] = v_codes
+            state["k_scale"][:, w : w + T] = k_scale
+            state["v_scale"][:, w : w + T] = v_scale
+        else:
+            state["k"][:, w : w + T] = k.to(state["k"].dtype)
+            state["v"][:, w : w + T] = v.to(state["v"].dtype)
         state["slot_pos"][:, w : w + T] = positions.to(torch.int32)
-        sp = state["slot_pos"]
-        valid = (sp[:, None, :] >= 0) & (sp[:, None, :] <= positions[:, :, None])  # [B, T, C]
-        out = sdpa_slots(q, state["k"], state["v"], valid[:, None])
+        R = C if read_limit is None else max(8, min(int(read_limit), C))
+        sp = state["slot_pos"][:, :R]
+        ks = state["k_scale"][:, :R] if int8_kv else None
+        vs = state["v_scale"][:, :R] if int8_kv else None
+        if T == 1 and B > 1:
+            from pocket_tts_tpu_torch.ops.batch_attention import batch_decode_attention
+
+            # The full cache buffers go in; the kernel reads rows [:R] only.
+            out = batch_decode_attention(
+                q.transpose(1, 2), state["k"], state["v"], sp, positions[:, 0], ks, vs,
+                read_rows=R,
+            ).transpose(1, 2)
+        else:
+            valid = (sp[:, None, :] >= 0) & (sp[:, None, :] <= positions[:, :, None])  # [B, T, R]
+            out = sdpa_slots(q, state["k"][:, :R], state["v"][:, :R], valid[:, None], ks, vs)
         return linear(out.reshape(B, T, self.embed_dim), params["out_proj"]["weight"])
 
 

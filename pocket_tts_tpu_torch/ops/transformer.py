@@ -80,10 +80,10 @@ class StreamingTransformerLayer:
         h = linear(h, params["linear2"]["weight"])
         return x + self._scaled(params, "layer_scale_2", h)
 
-    def __call__(self, params, x, state, positions, rope_cache, widx=None, pos0=None):
+    def __call__(self, params, x, state, positions, rope_cache, widx=None, pos0=None, read_limit=None):
         h = layer_norm(x, params["norm1"]["weight"], params["norm1"]["bias"], eps=1e-5)
         if self.attention_kind == "flow_lm":
-            update = self.self_attn(params["self_attn"], h, state, positions, widx, rope_cache)
+            update = self.self_attn(params["self_attn"], h, state, positions, widx, rope_cache, read_limit)
         else:
             update = self.self_attn(params["self_attn"], h, state, positions, pos0, rope_cache)
         x = x + self._scaled(params, "layer_scale_1", update)
@@ -129,14 +129,16 @@ class StreamingTransformer:
             state["widx"] = 0  # one host-side write index for the whole stack
         return state
 
-    def __call__(self, params, x, state, positions, pos0: int | None = None) -> torch.Tensor:
+    def __call__(self, params, x, state, positions, pos0: int | None = None,
+                 read_limit: int | None = None) -> torch.Tensor:
         """Run the stack on x [B, T, E] at positions [B, T], updating `state`
-        in place (flow_lm: appends at state["widx"], which advances by T)."""
+        in place (flow_lm: appends at state["widx"], which advances by T;
+        read_limit bounds the cache rows each layer's attention reads)."""
         rope_cache = rope_angles(positions.clamp(min=0), self.d_model // self.num_heads, self.max_period)
         layer = self.layer
         widx = state.get("widx")
         for l_params, l_state in zip(params["layers"], state["layers"]):
-            x = layer(l_params, x, l_state, positions, rope_cache, widx=widx, pos0=pos0)
+            x = layer(l_params, x, l_state, positions, rope_cache, widx=widx, pos0=pos0, read_limit=read_limit)
         if widx is not None:
             state["widx"] = widx + x.shape[1]
         return x

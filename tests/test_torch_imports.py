@@ -1,6 +1,6 @@
-"""Importing the PyTorch port (its package root, every module and both kernel
-modules) pulls in neither jax, the JAX package nor triton, and needs no
-nvcc: kernels build only when a CUDA tensor first reaches a wrapper."""
+"""Importing the PyTorch port (its package root, every module and the three
+kernel modules) pulls in neither jax, the JAX package nor triton, and needs
+no nvcc: kernels build only when a CUDA tensor first reaches a wrapper."""
 
 import os
 import subprocess
@@ -16,6 +16,8 @@ MODULES = [
     "pocket_tts_tpu_torch.main",
     "pocket_tts_tpu_torch.ops.fused_backbone",
     "pocket_tts_tpu_torch.ops.fused_segment",
+    "pocket_tts_tpu_torch.ops.batch_attention",
+    "pocket_tts_tpu_torch.ops.attention",
     "pocket_tts_tpu_torch.ops._cuda",
     "pocket_tts_tpu_torch.models.tts_model",
     "pocket_tts_tpu_torch.conditioners.text",
