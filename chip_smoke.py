@@ -1,20 +1,21 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's B=1 int8 main path and its batch path once on
-one NVIDIA H100.
+"""Drive the PyTorch port's B=1 int8 main path, its batch path, the probe
+entry point, the serving engine and the HTTP server once on one NVIDIA H100.
 
 Run from the repository root:  python3 chip_smoke.py
 
 Phases (any failure exits non-zero and prints no result line):
   1. card name and power limit (nvidia-smi); CUDA must be available;
-  2. build the three CUDA kernels from pocket_tts_tpu_torch/csrc with nvcc
+  2. build the four CUDA sources from pocket_tts_tpu_torch/csrc with nvcc
      (sm_90a), all at once, and print their registers and spills;
   3. hold each kernel against its plain PyTorch version on the card, at the
      b6369a24 geometry with a prefilled C=256 cache: fused_backbone_step for
-     a BOS and a non-BOS frame, fused_segment_decode at S=8 and S=64
-     (outputs, full updated caches, slot_pos); batch_decode_attention at
-     H=16, d=64, B=64, C=512 for bf16 and int8 caches, read_rows 512 and 256
-     (rows past 256 poisoned), holes, -1 rows, varied query positions, one
-     stream with no valid row (its output must be exactly 0);
+     a BOS and a non-BOS frame (and at C=512), fused_segment_decode at S=8
+     and S=64 (outputs, full updated caches, slot_pos); batch_decode_attention
+     at H=16, d=64, B=64 for bf16 and int8 caches, C=512 with read_rows 512
+     and 256 (rows past 256 poisoned) and C=384 read whole, holes, -1 rows,
+     varied query positions, one stream with no valid row (its output must
+     be exactly 0);
   4. the main path: TTSModel.load_model(param_dtype="int8") at b6369a24
      width (seeded random weights), the "alba" voice, generate_audio_stream
      and generate_audio on a two-sentence text; every streamed frame is 1920
@@ -39,7 +40,36 @@ Phases (any failure exits non-zero and prints no result line):
      valid, against the K+V read bound; the B=64 device ms per decode step
      and per frame of a 64-frame segment (CUDA events); the aggregate
      real-time factor of generate_audio_batch at B=64 (median of warm runs);
-     a torch.profiler breakdown of one warm B=64 run.
+     a torch.profiler breakdown of one warm B=64 run;
+  8. the probes: row_write bit-equal to its plain version at (64, 1024) for
+     rows 0, 7, 8, 13, 63 and at (65536, 1024), only that row changed;
+     head_slice_weighted_sum within 1e-5 relative of its plain version on
+     the probe script's input and on seeded random inputs at (64, 1024) and
+     (65536, 1024); the probe entry point run in this process (its launches
+     counted) and as `python -m pocket_tts_tpu_torch.probes` (exit 0); both
+     kernels timed at (65536, 1024) by torch.profiler kernel time beside
+     their bounds, their plain versions and one PyTorch call each (the sum
+     over inputs and outputs rotated past the L2, so both reach HBM);
+  9. the serving engine at b6369a24 width, int8 weights and int8 KV:
+     TTSEngine(slots=64, segment_frames=8, capacity=384) serves 96 requests
+     (48 at once, then 2 every 40 ms) in its serving thread, once on a
+     warm-up engine (first use of its shapes) and once measured; every request
+     completes with finite audio of exactly its expected frames, preemption,
+     resumption, compaction and growth happen, every batch decode attention
+     goes through the kernel (launches = 6 x dispatched frames, no B=1
+     kernel), every state tensor is on the card and the voice stays
+     bit-identical; aggregate RTF, TTFA p50/p99, lateness p99, tick walls,
+     parks/resumes/swaps, and 10 warm ticks run twice on the same workload,
+     unprofiled for the wall and under torch.profiler for the device busy
+     time (idle share, busy time by kind). Then a slots=1 engine (bf16 KV)
+     serves two requests, every frame through fused_backbone_step;
+ 10. the HTTP server (make_handler on a ThreadingHTTPServer at 127.0.0.1:0)
+     over an 8-slot engine with the server's defaults: one warm-up GET alone,
+     then 8 concurrent GETs return 200 and a 24 kHz 16-bit WAV of whole
+     frames, a burst of 40 more draws at least one 503 with Retry-After >= 1,
+     /x is 404 and empty text 400; the median time to the first PCM byte;
+ 11. each kernel against its plain version at every capacity the engines of
+     phases 9-10 decoded at that phases 3-5 did not compare.
 
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.
@@ -47,7 +77,10 @@ The second-to-last line is the kernels' JSON record, the last line
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import copy
+import itertools
 import json
 import statistics
 import subprocess
@@ -87,6 +120,10 @@ TOL_SEGMENT_MEAN = 2e-2
 # XLA oracle (tests/test_batch_attention.py:47,76). The CUDA kernel rounds
 # at the plain version's points, so it differs by float32 sum order only.
 TOL_BATCH = {"bf16": 2e-2, "int8": 3e-2}
+# head_slice_weighted_sum: float32 sums of 16 bf16 x small-integer products,
+# each exact; another summation order moves only the last bits.
+TOL_PROBE_SUM = 1e-5  # relative to the largest |output|
+SERVER_TEXTS = [" ".join(BATCH_WORDS[: 6 + (i * 7) % 10]).capitalize() + "." for i in range(48)]
 
 
 def fail(msg: str) -> None:
@@ -134,7 +171,7 @@ def main() -> None:
     from pocket_tts_tpu_torch.ops.fused_segment import fused_segment_decode, fused_segment_decode_reference
 
     # ---------------------------------------------------------------- phase 2
-    sources = ("fused_backbone", "fused_segment", "batch_attention")
+    sources = ("fused_backbone", "fused_segment", "batch_attention", "probes")
     t0 = time.monotonic()
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, all started together
         list(pool.map(_cuda.library, sources))
@@ -214,10 +251,12 @@ def main() -> None:
         base = prefilled(C_TEST)
         compare_step(base, True, 100)
         compare_step(base, False, 101)
+        compare_step(prefilled(512), False, 100)  # the engines grow to 512
         compare_segment(base, 8, True)
         compare_segment(base, 64, False)
-        errs["batch_decode_attention"] = compare_batch_attention(torch, dev, batch_decode_attention,
-                                                                 batch_decode_attention_reference)
+        errs["batch_decode_attention"] = compare_batch_attention(
+            torch, dev, batch_decode_attention, batch_decode_attention_reference, ((64, 512, (512, 256)), (64, 384, (384,))))
+    step_caps, batch_caps = {C_TEST, 512}, {(64, 512), (64, 384)}  # compared so far
 
     # ---------------------------------------------------------------- phase 4
     voice = model.get_state_for_audio_prompt("alba")
@@ -290,6 +329,7 @@ def main() -> None:
         # capacity the main path decoded at, then timed there.
         st = prefilled(c_main)
         compare_step(st, False, 100)
+        step_caps.add(c_main)
         compare_segment(st, 64, False)
         ks, vs, sp = cache_args(st)
         # Bounds: each frame reads every packed weight once and the KV rows
@@ -347,25 +387,60 @@ def main() -> None:
 
     # ---------------------------------------------------------------- phases 6-7
     batch = batch_path(torch, model, card, batch_decode_attention, fused_backbone_step, fused_segment_decode)
-    timings["batch_decode_attention"], bounds["batch_decode_attention"], library_ms = time_batch_attention(
+    timings["batch_decode_attention"], bounds["batch_decode_attention"], library = time_batch_attention(
         torch, dev, card, batch_decode_attention, batch_decode_attention_reference, device_ms)
+    library = {"batch_decode_attention": library}
     batch_timings(torch, model, card, device_ms)
 
-    def entry(name, source, replaces, n_launches, library=None):
+    # ---------------------------------------------------------------- phase 8
+    probe = probes_phase(torch, dev, card)
+    for name, (err, ms, plain_ms, bnd, lib_ms) in probe["kernels"].items():
+        errs[name], timings[name], bounds[name], library[name] = err, (ms, plain_ms), bnd, lib_ms
+
+    # ---------------------------------------------------------------- phases 9-10
+    counters = (batch_decode_attention, fused_backbone_step, fused_segment_decode)
+    served = engine_phase(torch, model, batch["model_kv_int8"], card, *counters)
+    del batch["model_kv_int8"]
+    torch.cuda.empty_cache()
+    server_caps = server_phase(torch, model, card)
+
+    # ---------------------------------------------------------------- phase 11
+    with torch.no_grad():
+        for C in sorted(served["step_capacities"] - step_caps):
+            compare_step(prefilled(C), False, 100)
+        cases = sorted({(64, C) for C in served["batch_capacities"]} | {(8, C) for C in server_caps})
+        cases = [(B, C, (C,)) for B, C in cases if (B, C) not in batch_caps]
+        if cases:
+            errs["batch_decode_attention"] = max(errs["batch_decode_attention"], compare_batch_attention(
+                torch, dev, batch_decode_attention, batch_decode_attention_reference, cases))
+    print(f"engine capacities: 64 slots {sorted(served['batch_capacities'])}, 1 slot "
+          f"{sorted(served['step_capacities'])}, server (8 slots) {sorted(server_caps)}; each compared above",
+          flush=True)
+
+    def entry(name, source, replaces, n_launches):
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": n_launches, "max_abs_err": errs[name],
             "ms": timings[name][0], "plain_ms": timings[name][1],
-            "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": library,
+            "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": library.get(name),
         }
 
+    # Launches: each kernel's count over the main-path runs that reach it,
+    # each counted from 0 just before its run (B=1 path, batch path, engine,
+    # probe entry point).
     kernels = [
         entry("fused_backbone_step", "pocket_tts_tpu_torch/csrc/fused_backbone.cu",
-              "pocket_tts_tpu/ops/fused_backbone.py:1080", launches["fused_backbone_step"]),
+              "pocket_tts_tpu/ops/fused_backbone.py:1080",
+              launches["fused_backbone_step"] + served["fused_backbone_step"]),
         entry("fused_segment_decode", "pocket_tts_tpu_torch/csrc/fused_segment.cu",
               "pocket_tts_tpu/ops/fused_segment.py:709", launches["fused_segment_decode"]),
         entry("batch_decode_attention", "pocket_tts_tpu_torch/csrc/batch_attention.cu",
-              "pocket_tts_tpu/ops/batch_attention.py:189", batch["launches"], library_ms),
+              "pocket_tts_tpu/ops/batch_attention.py:189",
+              batch["launches"] + served["batch_decode_attention"]),
+        entry("row_write", "pocket_tts_tpu_torch/csrc/probes.cu", "scripts/mosaic_probe.py:41",
+              probe["launches"]["row_write"]),
+        entry("head_slice_weighted_sum", "pocket_tts_tpu_torch/csrc/probes.cu", "scripts/mosaic_probe.py:87",
+              probe["launches"]["head_slice_weighted_sum"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -390,39 +465,44 @@ def batch_attention_inputs(torch, dev, B=64, C=512, H=16, d=64, seed=2):
     return [t.to(dev) for t in (q, k.to(torch.bfloat16), v.to(torch.bfloat16), sp, qpos)]
 
 
-def compare_batch_attention(torch, dev, kernel, plain) -> float:
-    """Kernel vs plain version for bf16 and int8 caches, read_rows 512 and
-    256 (rows past 256 poisoned in the cache); returns the largest error."""
+def compare_batch_attention(torch, dev, kernel, plain, cases) -> float:
+    """Kernel vs plain version for bf16 and int8 caches; `cases` holds
+    (B, C, read_rows in decreasing order); the rows past a read limit below
+    C are poisoned in the cache. Returns the largest error."""
     from pocket_tts_tpu_torch.ops.attention import quantize_kv_rows
 
-    q, k, v, sp, qpos = batch_attention_inputs(torch, dev)
     worst = 0.0
-    for kind in ("bf16", "int8"):
-        if kind == "int8":
-            (kk, ks), (vv, vs) = quantize_kv_rows(k), quantize_kv_rows(v)
-        else:
-            kk, vv, ks, vs = k.clone(), v.clone(), None, None
-        for R in (512, 256):
-            if R == 256:  # a row the kernel must not read
-                kk[:, R:] = 127 if kind == "int8" else float("nan")
-                vv[:, R:] = 127 if kind == "int8" else float("nan")
-                if ks is not None:
-                    ks[:, R:], vs[:, R:] = float("nan"), float("nan")
-            args = (q, kk, vv, sp[:, :R], qpos, None if ks is None else ks[:, :R], None if vs is None else vs[:, :R])
-            out, ref = kernel(*args, read_rows=R), plain(*args, read_rows=R)
-            torch.cuda.synchronize()
-            err = max_err(out, ref)
-            print(f"batch_decode_attention {kind} B=64 C=512 R={R}: max|err| {err:.3g} (tol {TOL_BATCH[kind]}), "
-                  f"zero-row stream exactly 0: {bool((out[3] == 0).all())}", flush=True)
-            if not (err <= TOL_BATCH[kind] and bool(torch.isfinite(out).all()) and bool((out[3] == 0).all())):
-                fail(f"batch_decode_attention {kind} R={R}: err {err:.4g}, or non-finite, or stream 3 not 0")
-            worst = max(worst, err)
+    for B, C, reads in cases:
+        q, k, v, sp, qpos = batch_attention_inputs(torch, dev, B=B, C=C)
+        for kind in ("bf16", "int8"):
+            if kind == "int8":
+                (kk, ks), (vv, vs) = quantize_kv_rows(k), quantize_kv_rows(v)
+            else:
+                kk, vv, ks, vs = k.clone(), v.clone(), None, None
+            for R in reads:
+                if R < C:  # a row the kernel must not read
+                    kk[:, R:] = 127 if kind == "int8" else float("nan")
+                    vv[:, R:] = 127 if kind == "int8" else float("nan")
+                    if ks is not None:
+                        ks[:, R:], vs[:, R:] = float("nan"), float("nan")
+                args = (q, kk, vv, sp[:, :R], qpos, None if ks is None else ks[:, :R],
+                        None if vs is None else vs[:, :R])
+                out, ref = kernel(*args, read_rows=R), plain(*args, read_rows=R)
+                torch.cuda.synchronize()
+                err = max_err(out, ref)
+                print(f"batch_decode_attention {kind} B={B} C={C} R={R}: max|err| {err:.3g} (tol {TOL_BATCH[kind]}), "
+                      f"zero-row stream exactly 0: {bool((out[3] == 0).all())}", flush=True)
+                if not (err <= TOL_BATCH[kind] and bool(torch.isfinite(out).all()) and bool((out[3] == 0).all())):
+                    fail(f"batch_decode_attention {kind} B={B} C={C} R={R}: err {err:.4g}, or non-finite, "
+                         f"or stream 3 not 0")
+                worst = max(worst, err)
     return worst
 
 
 def batch_path(torch, model, card, batch_kernel, step_kernel, segment_kernel) -> dict:
     """(a) 64 texts, one voice, bf16 KV; (b) the same, kv_int8; (c) 4
-    voices. Returns the batch kernel's launches over the three runs."""
+    voices. Returns the batch kernel's launches over the three runs and the
+    kv_int8 model (the engine phase serves it)."""
     import numpy as np
 
     from pocket_tts_tpu_torch.models.tts_model import TTSModel
@@ -462,7 +542,7 @@ def batch_path(torch, model, card, batch_kernel, step_kernel, segment_kernel) ->
         for v, snap in zip(voices, snapshots):
             if not all(torch.equal(x, y) for x, y in zip(_tensors(v.tree), _tensors(snap))):
                 fail(f"batch ({tag}): generate_audio_batch changed a voice state")
-    return {"launches": total}
+    return {"launches": total, "model_kv_int8": model8}
 
 
 def kernel_ms(torch, fn, reps: int) -> float:
@@ -553,13 +633,7 @@ def batch_timings(torch, model, card, device_ms) -> None:
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    categories = {"batch attention": ("scores_kernel", "pv_kernel", "combine_kernel"),
-                  "GEMM": ("gemm", "xmma", "gemv"), "convolution": ("conv", "cudnn"), "copy/cast": ("copy",)}
-    split = dict.fromkeys([*categories, "other elementwise"], 0.0)
-    for e in kernels:
-        name = e.key.lower()
-        cat = next((c for c, keys in categories.items() if any(k in name for k in keys)), "other elementwise")
-        split[cat] += e.self_device_time_total / 1e3
+    split = _busy_by_kind(kernels)
     print(f"profile of one warm generate_audio_batch B=64: wall {wall_ms:.1f} ms with the profiler on, device busy "
           f"{busy_ms:.1f} ms in {sum(e.count for e in kernels)} kernels; idle share "
           f"{1 - busy_ms / (statistics.median(walls) * 1e3):.2f} against the median unprofiled wall "
@@ -584,6 +658,387 @@ def batch_timings(torch, model, card, device_ms) -> None:
     print(f"B=64 decode: {step_ms:.3f} ms per decode step (FlowLM, {gen['capacity']}-row cache read whole), "
           f"{seg_ms:.3f} ms per frame of a 64-frame segment (FlowLM + Mimi), CUDA events, warm [{card}]",
           flush=True)
+
+
+def probes_phase(torch, dev, card) -> dict:
+    """Phase 8: both probe kernels against their plain versions, the probe
+    entry point in this process (launches counted) and as a subprocess, and
+    timings at (65536, 1024). Returns {"kernels": {name: (max_abs_err, ms,
+    plain_ms, (bound_ms, bound_by), library_ms)}, "launches": {name: n}}."""
+    from pocket_tts_tpu_torch import probes
+    from pocket_tts_tpu_torch.ops.probes import (
+        head_slice_weighted_sum,
+        head_slice_weighted_sum_reference,
+        row_write,
+        row_write_reference,
+    )
+
+    g = torch.Generator().manual_seed(8)
+    E, H, W = 1024, 16, 64
+    errs = {"row_write": 0.0, "head_slice_weighted_sum": 0.0}
+    for C, rows in ((64, (0, 7, 8, 13, 63)), (65536, (0, 13, 40000, 65535))):
+        cache = (torch.randn(C, E, generator=g) * 4).to(torch.bfloat16).to(dev)
+        row = (torch.randn(E, generator=g) * 4).to(torch.bfloat16).to(dev)
+        for i in rows:
+            got, ref = cache.clone(), cache.clone()
+            index = torch.tensor([i], dtype=torch.int32, device=dev)
+            out = row_write(got, row, index)
+            row_write_reference(ref, row, index)
+            torch.cuda.synchronize()
+            others = torch.arange(C, device=dev) != i
+            if not (out is got and torch.equal(got, ref) and torch.equal(got[i], row)
+                    and torch.equal(got[others], cache[others])):
+                fail(f"row_write ({C}, {E}) row {i}: not bit-equal to its plain version, or another row changed")
+        print(f"row_write ({C}, {E}) rows {list(rows)}: bit-equal to the plain version, other rows untouched",
+              flush=True)
+    script_x = (torch.arange(64 * E, dtype=torch.float32).reshape(64, E) % 97).to(torch.bfloat16)
+    for tag, x in (("script input (64, 1024)", script_x),
+                   ("random (64, 1024)", torch.randn(64, E, generator=g).to(torch.bfloat16)),
+                   ("random (65536, 1024)", (torch.randn(65536, E, generator=g) * 8).to(torch.bfloat16))):
+        x = x.to(dev)
+        out, ref = head_slice_weighted_sum(x, H, W), head_slice_weighted_sum_reference(x, H, W)
+        torch.cuda.synchronize()
+        err = max_err(out, ref)
+        rel = err / max(float(ref.abs().max()), 1e-30)
+        print(f"head_slice_weighted_sum {tag}: max|err| {err:.3g}, relative {rel:.3g} (tol {TOL_PROBE_SUM})",
+              flush=True)
+        if not (rel <= TOL_PROBE_SUM and bool(torch.isfinite(out).all())):
+            fail(f"head_slice_weighted_sum {tag}: relative error {rel:.4g}")
+        errs["head_slice_weighted_sum"] = max(errs["head_slice_weighted_sum"], err)
+
+    # The probe entry point, in this process: its launches are the main path's.
+    row_write.launches = head_slice_weighted_sum.launches = 0
+    if not probes.run("cuda"):
+        fail("the probe entry point reported a wrong result")
+    torch.cuda.synchronize()
+    launches = {"row_write": row_write.launches, "head_slice_weighted_sum": head_slice_weighted_sum.launches}
+    if launches != {"row_write": 1, "head_slice_weighted_sum": 1}:
+        fail(f"the probe entry point launched {launches}, not each kernel once")
+    proc = subprocess.run([sys.executable, "-m", "pocket_tts_tpu_torch.probes"], cwd=ROOT, capture_output=True,
+                          text=True, timeout=600)
+    print(f"python -m pocket_tts_tpu_torch.probes: exit {proc.returncode}; {proc.stdout.strip()!r}", flush=True)
+    if proc.returncode != 0:
+        fail(f"python -m pocket_tts_tpu_torch.probes exited {proc.returncode}: {proc.stderr[-2000:]}")
+
+    # Timings at (65536, 1024): kernel time by torch.profiler. Successive
+    # calls of the sum read four inputs in turn (512 MiB together) and write
+    # nine outputs in turn (the last eight are held: 144 MiB), so no call
+    # finds its input, or the lines of its output, left in the 50 MB L2 by
+    # the calls before. Even so the 16 MiB output does not bound the call:
+    # it is written into the L2, whose write-back to HBM can fall after the
+    # kernel (the sum read faster than its input and output over 3.35 TB/s),
+    # so the bound is the 128 MiB input read.
+    C = 65536
+    cache = torch.randn(C, E, generator=g).to(torch.bfloat16).to(dev)
+    row = torch.randn(E, generator=g).to(torch.bfloat16).to(dev)
+    index = torch.tensor([12345], dtype=torch.int32, device=dev)
+    index_long = index.long()
+    xs = itertools.cycle([torch.randn(C, E, generator=g).to(torch.bfloat16).to(dev) for _ in range(4)])
+    weights = torch.arange(1, H + 1, dtype=torch.float32, device=dev).view(1, H, 1)
+    held = collections.deque(maxlen=8)
+    p1 = (kernel_ms(torch, lambda: row_write(cache, row, index), 48),
+          kernel_ms(torch, lambda: row_write_reference(cache, row, index), 48),
+          kernel_ms(torch, lambda: cache.index_copy_(0, index_long, row[None]), 48))
+    p2 = (kernel_ms(torch, lambda: held.append(head_slice_weighted_sum(next(xs), H, W)), 48),
+          kernel_ms(torch, lambda: held.append(head_slice_weighted_sum_reference(next(xs), H, W)), 20),
+          kernel_ms(torch, lambda: held.append((next(xs).view(C, H, W).float() * weights).sum(1)), 20))
+    held.clear()
+    x = next(xs)
+    b1 = bound(2 * E * 2 + 4, 0)  # one row read and written, the index read
+    b2 = bound(x.numel() * 2, 2 * x.numel())  # x read (the output stays in the L2); a multiply-add per element
+    for name, (ms, plain_ms, lib_ms), (b_ms, by), lib in (
+        ("row_write", p1, b1, "index_copy_"),
+        ("head_slice_weighted_sum", p2, b2, "(x.view(C,16,64).float() * w).sum(1)"),
+    ):
+        print(f"{name} ({C}, {E}): {ms * 1e3:.2f} us/call of device time (CUDA kernel, bound {b_ms * 1e3:.3f} us by "
+              f"{by}{'; a 2 KiB row write is bound by its launch, by nature' if name == 'row_write' else ''}) vs "
+              f"{plain_ms * 1e3:.2f} us (plain PyTorch) and {lib_ms * 1e3:.2f} us ({lib}); torch.profiler kernel "
+              f"times [{card}]", flush=True)
+    return {
+        "kernels": {"row_write": (errs["row_write"], *p1[:2], b1, p1[2]),
+                    "head_slice_weighted_sum": (errs["head_slice_weighted_sum"], *p2[:2], b2, p2[2])},
+        "launches": launches,
+    }
+
+
+def _expected_frames(model, text: str, text_pad: int) -> int:
+    """Frames the engine decodes for `text` with EOS disabled: max_gen of
+    every sentence chunk's token parts (the direct API's chunking)."""
+    from pocket_tts_tpu_torch.default_parameters import MAX_TOKEN_PER_CHUNK
+    from pocket_tts_tpu_torch.models.text import estimate_max_gen_len, split_into_best_sentences
+
+    total = 0
+    for chunk in split_into_best_sentences(model.tokenizer, text, min(MAX_TOKEN_PER_CHUNK, text_pad)):
+        tokens = model.tokenizer.encode(chunk)
+        for start in range(0, len(tokens), text_pad):
+            total += estimate_max_gen_len(len(tokens[start : start + text_pad]), model.config.mimi.frame_rate)
+    return total
+
+
+def _percentile(values, q: float) -> float:
+    import numpy as np
+
+    return float(np.percentile(np.asarray(values, dtype=np.float64), q))
+
+
+def _track_capacities(engine) -> set:
+    """The set of KV capacities `engine` decodes at: its start and every
+    growth (kept up to date as it serves)."""
+    seen, grow = {engine.capacity}, engine._maybe_grow
+
+    def maybe_grow():
+        grow()
+        seen.add(engine.capacity)
+
+    engine._maybe_grow = maybe_grow
+    return seen
+
+
+def _serve_requests(torch, engine, voice, texts):
+    """Submit 48 texts at once, then 2 every 40 ms, to the engine running in
+    its serving thread; wait for every stream. -> (handles, audios, wall s)."""
+    t0 = time.monotonic()
+    handles = [engine.submit(t, voice) for t in texts[:48]]
+    thread = engine.serve_forever_in_thread()
+    for i in range(48, len(texts), 2):
+        time.sleep(0.04)
+        handles += [engine.submit(t, voice) for t in texts[i : i + 2]]
+    audios = [h.audio() for h in handles]
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    engine.stop()
+    thread.join(timeout=120)
+    if thread.is_alive():
+        fail("the engine's serving thread did not stop")
+    return handles, audios, wall
+
+
+def engine_phase(torch, model, model8, card, batch_kernel, step_kernel, segment_kernel) -> dict:
+    """Phase 9: the 64-slot engine over the kv_int8 model (a first engine
+    serves the workload once to warm every shape it meets; a fresh one is
+    measured), then a 1-slot engine over the bf16-KV model. Returns the
+    kernels' launches of the measured runs and the capacities the engines
+    decoded at."""
+    import numpy as np
+
+    from pocket_tts_tpu_torch.serving.engine import TTSEngine
+
+    voice = model8.get_state_for_audio_prompt("alba")
+    snapshot = copy.deepcopy(voice.tree)
+    texts = BATCH_TEXTS + BATCH_TEXTS[:32]
+    kw = dict(slots=64, segment_frames=8, capacity=384, record_frame_times=True)
+    engine = TTSEngine(model8, **kw)
+    batch_caps = _track_capacities(engine)
+    _, _, wall = _serve_requests(torch, engine, voice, texts)
+    print(f"engine warm-up: TTSEngine(slots=64, segment_frames=8, capacity=384), kv_int8, served the workload in "
+          f"{wall:.2f} s (first use of its shapes)", flush=True)
+    engine = TTSEngine(model8, **kw)
+    caps = _track_capacities(engine)
+    batch_kernel.launches = step_kernel.launches = segment_kernel.launches = 0
+    handles, audios, wall = _serve_requests(torch, engine, voice, texts)
+    n_batch = batch_kernel.launches
+    layers = model8.flow_lm.config.transformer.num_layers
+    expected = [_expected_frames(model8, t, engine.text_pad) for t in texts]
+    got = [a.shape[0] // 1920 for a in audios]
+    seconds = sum(a.shape[0] for a in audios) / model8.sample_rate
+    ttfa = [h.frame_times[0] - h.submit_time for h in handles]
+    lateness = np.concatenate([engine.frame_lateness(h) for h in handles])
+    walls = engine.tick_walls
+    print(f"engine: {len(handles)} requests, {seconds:.1f} s of audio in {wall:.2f} s, aggregate RTF "
+          f"{seconds / wall:.1f}x; TTFA p50 {_percentile(ttfa, 50) * 1e3:.1f} ms, p99 {_percentile(ttfa, 99) * 1e3:.1f} "
+          f"ms; lateness p99 {_percentile(lateness, 99) * 1e3:.1f} ms over {lateness.size} frames; tick wall p50 "
+          f"{_percentile(walls, 50) * 1e3:.1f} ms, p99 {_percentile(walls, 99) * 1e3:.1f} ms over {len(walls)} ticks; "
+          f"parks {engine.preemptions}, resumes {engine.resumes}, swaps {engine.swaps}, compactions "
+          f"{engine.compactions}, growths {engine.growths} (capacity {engine.capacity}); "
+          f"{engine.frames_dispatched} frames dispatched, batch kernel launches {n_batch} [{card}]", flush=True)
+    if any(a.ndim != 1 or not np.isfinite(a).all() for a in audios) or got != expected:
+        bad = [(t[:30], g, e) for t, g, e in zip(texts, got, expected) if g != e][:5]
+        fail(f"engine: every request must return finite audio of exactly its expected frames; {bad}")
+    if not (engine.preemptions > 0 and engine.resumes == engine.preemptions):
+        fail(f"engine: {engine.preemptions} parks and {engine.resumes} resumes; expected some, all resumed")
+    if engine.compactions < 1 or engine.growths < 1:
+        fail(f"engine: {engine.compactions} compactions and {engine.growths} growths; expected at least one each")
+    if n_batch != layers * engine.frames_dispatched or step_kernel.launches or segment_kernel.launches:
+        fail(f"engine: {n_batch} batch kernel launches for {engine.frames_dispatched} frames x {layers} layers "
+             f"(B=1 kernels {step_kernel.launches}, {segment_kernel.launches})")
+    if not all(t.is_cuda for t in engine.state_tensors()):
+        fail("engine: a state tensor is not on the card")
+    if not all(torch.equal(x, y) for x, y in zip(_tensors(voice.tree), _tensors(snapshot))):
+        fail("engine: serving changed the voice state")
+
+    # 10 warm ticks after 64 admissions, twice on the same workload: once
+    # unprofiled for the wall (then drained), once under the profiler for
+    # the device busy time, which the profiler's host cost does not change.
+    from torch.profiler import ProfilerActivity, profile
+
+    def window(prof=None):
+        for t in BATCH_TEXTS:
+            engine.submit(t, voice)
+        engine.run(max_ticks=4)
+        torch.cuda.synchronize()
+        with prof or contextlib.nullcontext():
+            t0 = time.monotonic()
+            engine.run(max_ticks=10)
+            torch.cuda.synchronize()
+        return (time.monotonic() - t0) * 1e3
+
+    window_ms = window()
+    engine.run()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    profiled_ms = window(prof)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    split = _busy_by_kind(kernels)
+    print(f"engine profile, 10 warm ticks after 64 admissions: wall {window_ms:.1f} ms unprofiled "
+          f"({profiled_ms:.1f} ms with the profiler on), device busy {busy_ms:.1f} ms in "
+          f"{sum(e.count for e in kernels)} kernels, idle share {1 - busy_ms / window_ms:.2f} against the "
+          f"unprofiled wall; busy ms by kind {json.dumps({k: round(v, 1) for k, v in split.items()})} [{card}]",
+          flush=True)
+    # Dispatch reads nothing back from the card (the pipelining rests on it):
+    # queue two segments with every synchronising CUDA call made an error.
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        queued = [engine._dispatch_segment(), engine._dispatch_segment()]
+    except RuntimeError as exc:
+        fail(f"engine: dispatching a segment synchronised with the card: {exc}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for dispatched in queued:
+        engine._deliver(dispatched)
+    print("engine: two segments dispatched with synchronising calls made errors: none made", flush=True)
+    del engine
+    torch.cuda.empty_cache()
+
+    # One slot, bf16 KV: every frame through the per-frame B=1 kernel.
+    voice1 = model.get_state_for_audio_prompt("alba")
+    engine = TTSEngine(model, slots=1, segment_frames=4, capacity=384)
+    step_caps = _track_capacities(engine)
+    batch_kernel.launches = step_kernel.launches = segment_kernel.launches = 0
+    pair = BATCH_TEXTS[:2]
+    handles = [engine.submit(t, voice1) for t in pair]
+    engine.run()
+    audios = [h.audio() for h in handles]
+    got = [a.shape[0] // 1920 for a in audios]
+    expected = [_expected_frames(model, t, engine.text_pad) for t in pair]
+    print(f"engine slots=1: {engine.frames_dispatched} frames dispatched, fused_backbone_step launches "
+          f"{step_kernel.launches}, frames per request {got}, capacities {sorted(step_caps)} [{card}]", flush=True)
+    if got != expected or any(not np.isfinite(a).all() for a in audios):
+        fail(f"engine slots=1: frames {got}, expected {expected}, or non-finite audio")
+    if step_kernel.launches != engine.frames_dispatched or batch_kernel.launches or segment_kernel.launches:
+        fail(f"engine slots=1: {step_kernel.launches} fused_backbone_step launches for {engine.frames_dispatched} "
+             f"frames (batch {batch_kernel.launches}, segment {segment_kernel.launches})")
+    return {"batch_decode_attention": n_batch, "fused_backbone_step": step_kernel.launches,
+            "batch_capacities": batch_caps | caps, "step_capacities": step_caps}
+
+
+def _busy_by_kind(kernels) -> dict:
+    categories = {"batch attention": ("scores_kernel", "pv_kernel", "combine_kernel"),
+                  "GEMM": ("gemm", "xmma", "gemv"), "convolution": ("conv", "cudnn"), "copy/cast": ("copy",)}
+    split = dict.fromkeys([*categories, "other elementwise"], 0.0)
+    for e in kernels:
+        name = e.key.lower()
+        cat = next((c for c, keys in categories.items() if any(k in name for k in keys)), "other elementwise")
+        split[cat] += e.self_device_time_total / 1e3
+    return split
+
+
+def server_phase(torch, model, card) -> set:
+    """Phase 10: HTTP round trips through make_handler over an 8-slot engine
+    with the server's defaults (PCM16 frames, capacity 4096), max_pending=16.
+    Returns the capacities its engine decoded at."""
+    import io
+    import threading
+    import urllib.error
+    import urllib.parse
+    import urllib.request
+    import wave
+    from http.server import ThreadingHTTPServer
+
+    from pocket_tts_tpu_torch.serving.engine import TTSEngine
+    from pocket_tts_tpu_torch.serving.server import make_handler
+
+    engine = TTSEngine(model, slots=8, segment_frames=4, emit_pcm16=True, max_pending=16)
+    caps = _track_capacities(engine)
+    engine_thread = engine.serve_forever_in_thread()
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(model, engine))
+    http_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    http_thread.start()
+    url = f"http://127.0.0.1:{httpd.server_port}"
+    results, first_bytes = {}, {}
+
+    def fetch(key, text):
+        t0 = time.monotonic()
+        try:
+            with urllib.request.urlopen(f"{url}/tts?text={urllib.parse.quote(text)}&voice=alba", timeout=600) as r:
+                head = r.read(46)  # the WAV header and the first PCM sample
+                first_bytes[key] = time.monotonic() - t0
+                results[key] = (r.status, head + r.read(), None)
+        except urllib.error.HTTPError as exc:
+            results[key] = (exc.code, b"", exc.headers.get("Retry-After"))
+
+    def valid_wav(data: bytes) -> bool:
+        w = wave.open(io.BytesIO(data))
+        samples = (len(data) - 44) // 2  # the header's frame count is a placeholder
+        pad = int(0.2 * model.sample_rate)  # the writer's trailing silence
+        return (w.getframerate() == 24000 and w.getsampwidth() == 2 and w.getnchannels() == 1
+                and samples > pad and (samples - pad) % 1920 == 0)
+
+    fetch(("warm-up", 0), SERVER_TEXTS[-1])  # one request alone: builds the voice, first use of the shapes
+    if results[("warm-up", 0)][0] != 200 or not valid_wav(results[("warm-up", 0)][1]):
+        fail(f"server: the warm-up GET returned {results[('warm-up', 0)][0]} or not a valid WAV")
+    cold_ms = first_bytes[("warm-up", 0)] * 1e3
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=fetch, args=(("first", i), SERVER_TEXTS[i])) for i in range(8)]
+    for t in threads:
+        t.start()
+    while len(first_bytes) < 8 and time.monotonic() - t0 < 300 and any(t.is_alive() for t in threads):
+        time.sleep(0.01)
+    burst = [threading.Thread(target=fetch, args=(("burst", i), SERVER_TEXTS[8 + i])) for i in range(40)]
+    for t in burst:
+        t.start()
+    for t in threads + burst:
+        t.join(timeout=600)
+    wall = time.monotonic() - t0
+    codes = {}
+    for key, (code, _, _) in results.items():
+        codes[code] = codes.get(code, 0) + 1
+    firsts = sorted(first_bytes[("first", i)] for i in range(8) if ("first", i) in first_bytes)
+    print(f"server: 8 concurrent GETs then a burst of 40 in {wall:.2f} s; status codes {codes}; time to the first "
+          f"PCM byte of the 8: median {statistics.median(firsts) * 1e3:.1f} ms (min {firsts[0] * 1e3:.1f}, max "
+          f"{firsts[-1] * 1e3:.1f}; {cold_ms:.1f} ms for the warm-up GET alone); engine parks "
+          f"{engine.preemptions}, rejected {engine.rejected} [{card}]", flush=True)
+    if len(results) != 49 or any(t.is_alive() for t in threads + burst):
+        fail("server: a request did not finish")
+    for i in range(8):
+        code, data, _ = results[("first", i)]
+        if code != 200 or not valid_wav(data):
+            fail(f"server: concurrent GET {i} returned {code} or not a 24 kHz 16-bit WAV of whole frames")
+    shed = [(code, ra) for key, (code, _, ra) in results.items() if key[0] == "burst" and code == 503]
+    if not shed or any(ra is None or int(ra) < 1 for _, ra in shed):
+        fail(f"server: the burst drew no 503 with Retry-After >= 1 ({codes})")
+    for key, (code, data, _) in results.items():
+        if code == 200 and not valid_wav(data):
+            fail(f"server: {key} returned 200 without a valid WAV")
+        if code not in (200, 503):
+            fail(f"server: {key} returned {code}")
+    for path, want in (("/x", 404), ("/tts?text=", 400)):
+        try:
+            urllib.request.urlopen(url + path, timeout=60)
+            got = 200
+        except urllib.error.HTTPError as exc:
+            got = exc.code
+        if got != want:
+            fail(f"server: GET {path} returned {got}, expected {want}")
+    print(f"server: /x 404, empty text 400; {len(shed)} of 40 burst requests shed with Retry-After "
+          f"{sorted({int(ra) for _, ra in shed})}", flush=True)
+    httpd.shutdown()
+    engine.stop()
+    engine_thread.join(timeout=120)
+    if engine_thread.is_alive():
+        fail("the server's engine thread did not stop")
+    return caps
 
 
 def _tensors(tree):

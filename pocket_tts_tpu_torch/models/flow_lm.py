@@ -35,6 +35,7 @@ from pocket_tts_tpu_torch.ops.linear import linear
 from pocket_tts_tpu_torch.ops.norms import layer_norm
 from pocket_tts_tpu_torch.ops.sampling import lsd_decode
 from pocket_tts_tpu_torch.ops.transformer import StreamingTransformer
+from pocket_tts_tpu_torch.utils.transfer import host_to_device
 
 Params = dict
 State = dict
@@ -121,7 +122,8 @@ class FlowLMModel:
         pos = torch.tensor(state["pos"], dtype=torch.int32)[:, None]
         lens = torch.tensor(lengths, dtype=torch.int32)[:, None]
         positions = torch.where(offsets < lens, pos + offsets, torch.full_like(offsets, -1))
-        self.transformer(params["transformer"], embeddings, state["transformer"], positions.to(embeddings.device))
+        self.transformer(params["transformer"], embeddings, state["transformer"],
+                         host_to_device(positions, embeddings.device))
         state["pos"] = [p + n for p, n in zip(state["pos"], lengths)]
         return state
 
@@ -157,7 +159,7 @@ class FlowLMModel:
             else:
                 seq = bos.expand(B, -1) if is_bos else latent
             x = linear(seq[:, None, :], params["input_linear"]["weight"])
-            positions = torch.tensor(state["pos"], dtype=torch.int32, device=latent.device)[:, None]
+            positions = host_to_device(torch.tensor(state["pos"], dtype=torch.int32), latent.device)[:, None]
             h = self.transformer(params["transformer"], x, tstate, positions, read_limit=read_limit)
             h = layer_norm(h, params["out_norm"]["weight"], params["out_norm"]["bias"], eps=1e-5).float()[:, -1]
             eos_logits = linear(h, params["out_eos"]["weight"], params["out_eos"]["bias"])[:, 0]

@@ -33,12 +33,15 @@ def to_pcm16(audio: torch.Tensor) -> torch.Tensor:
 
 
 def initial_carry(batch: int, ldim: int, frames_after_eos, max_gen, device) -> dict:
-    """Fresh decode carry: BOS flag, EOS sentinels and the step counter."""
+    """Fresh decode carry: per-stream BOS flags, EOS sentinels and step
+    counters (the engine admits streams into slots mid-flight), and `tick`,
+    the batch-common count of decoded frames."""
     return {
         "latent": torch.zeros(batch, ldim, dtype=torch.float32, device=device),
-        "is_bos": True,
+        "is_bos": torch.ones(batch, dtype=torch.bool, device=device),
         "eos_step": torch.full((batch,), 2**30, dtype=torch.int64, device=device),
-        "step": 0,
+        "step": torch.zeros(batch, dtype=torch.int64, device=device),
+        "tick": 0,
         "frames_after_eos": torch.as_tensor(frames_after_eos, dtype=torch.int64, device=device),
         "max_gen": torch.as_tensor(max_gen, dtype=torch.int64, device=device),
     }
@@ -66,7 +69,9 @@ def run_segment(
     """Decode one segment -> (flow_state, mimi_state, carry, audio [B, S,
     frame], emit [B, S] bool, all_done bool tensor). Caches update in place.
     read_limit bounds the cache rows the per-frame attention reads; the
-    caller guarantees widx + S <= read_limit."""
+    caller guarantees widx + S <= read_limit. The carry's `is_bos` and
+    `step` are per stream ([B] tensors); the B=1 kernels take the BOS flag
+    as a host bool, one device read per segment."""
     flow_params, mimi_params = params["flow_lm"], params["mimi"]
     S, B, _ = noise_seq.shape
     if segment_kernel_ok(flow_lm, flow_params, flow_state, lsd_decode_steps, S):
@@ -97,16 +102,17 @@ def run_segment(
     # Vectorized EOS bookkeeping: the running eos_step at frame i (after
     # folding frame i's own flag) is the prefix-min of flagged step indices.
     device = latents.device
-    steps = carry["step"] + torch.arange(S, dtype=torch.int64, device=device)[:, None]  # [S, 1]
+    steps = carry["step"] + torch.arange(S, dtype=torch.int64, device=device)[:, None]  # [S, B]
     cand = torch.where(eos_flags, steps, torch.full_like(steps, 2**30))
     eos_step_seq = torch.minimum(carry["eos_step"][None, :], torch.cummin(cand, dim=0).values)  # [S, B]
     emit = (steps < eos_step_seq + carry["frames_after_eos"][None, :]) & (steps < carry["max_gen"][None, :])
     carry = {
         **carry,
         "latent": latents[-1],
-        "is_bos": False,
+        "is_bos": torch.zeros_like(carry["is_bos"]),
         "eos_step": eos_step_seq[-1],
         "step": carry["step"] + S,
+        "tick": carry["tick"] + S,
     }
     audio, mimi_state = decode_mimi_chunk(flow_params, mimi_params, mimi, latents.transpose(0, 1), mimi_state)
     if emit_pcm16:

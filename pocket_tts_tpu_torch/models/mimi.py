@@ -109,13 +109,15 @@ class MimiModel:
         self, batch_size: int, kv_dtype=torch.float32, max_chunk_frames: int = 1, device="cpu"
     ) -> State:
         """Streaming decode state; the transformer ring retains a full window
-        plus the largest chunk decoded in one call. Conv carries stay float32."""
+        plus the largest chunk decoded in one call. Conv carries stay float32.
+        `pos` is each stream's 200 Hz step count (the serving engine moves
+        streams between slots with their own count)."""
         chunk = max(1, max_chunk_frames) * self.upsample_stride
         ring = ((self.config.transformer.context + chunk + 127) // 128 + 1) * 128
         state: State = {
             "decoder_transformer": self.decoder_transformer.init_state(batch_size, ring, kv_dtype, device),
             "decoder": self.decoder.init_state(batch_size, torch.float32, device),
-            "pos": 0,  # 200 Hz step count, batch-common
+            "pos": torch.zeros(batch_size, dtype=torch.int32, device=device),
         }
         if self.has_resample:
             state["upsample"] = self.upsample.init_state(batch_size, torch.float32, device)
@@ -137,11 +139,9 @@ class MimiModel:
             emb, new_state["upsample"] = self.upsample(
                 params["upsample"]["convtr"]["convtr"], emb, state["upsample"]
             )
-        pos0 = state["pos"]
+        pos0 = state["pos"]  # [B]
         T = emb.shape[-1]
-        positions = torch.arange(pos0, pos0 + T, dtype=torch.int32, device=emb.device)[None, :].expand(
-            emb.shape[0], T
-        )
+        positions = pos0[:, None] + torch.arange(T, dtype=torch.int32, device=emb.device)[None, :]
         (emb,) = self.decoder_transformer(
             params["decoder_transformer"], emb, state["decoder_transformer"], positions, pos0
         )

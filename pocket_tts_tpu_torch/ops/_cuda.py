@@ -144,4 +144,8 @@ _SIGNATURES = {
     # (q, k, v, kind, slot_pos, sp_stride, qpos, k_scale, v_scale, sc_stride, B, C, H, R,
     #  scores, part, part_out, out, stream)
     "ptt_batch_decode_attention": ([_P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P], _I),
+    # (cache, row, index, C, E, stream)
+    "ptt_row_write": ([_P, _P, _P, _I, _I, _P], _I),
+    # (x, out, C, heads, width, stream)
+    "ptt_head_slice_weighted_sum": ([_P, _P, _I, _I, _I, _P], _I),
 }

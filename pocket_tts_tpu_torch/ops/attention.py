@@ -205,7 +205,7 @@ class WindowedRingAttention:
         x: torch.Tensor,  # [B, T, E]
         state: State,
         positions: torch.Tensor,  # int32 [B, T]
-        pos0: int,  # absolute position of x's first row (batch-common)
+        pos0,  # absolute position of x's first row: an int (batch-common) or int32 [B]
         rope_cache: tuple,
     ) -> torch.Tensor:
         B, T, _ = x.shape
@@ -221,10 +221,11 @@ class WindowedRingAttention:
         return linear(out.reshape(B, T, self.embed_dim), params["out_proj"]["weight"])
 
     def _valid(self, slot_pos: torch.Tensor, qpos: torch.Tensor) -> torch.Tensor:
-        delta = qpos[:, :, None] - slot_pos[None, None, :]  # [B, Tq, W]
-        return ((slot_pos[None, None, :] >= 0) & (delta >= 0) & (delta < self.context))[:, None]
+        """slot_pos [B, W], qpos [B, Tq] -> mask [B, 1, Tq, W]."""
+        delta = qpos[:, :, None] - slot_pos[:, None, :]  # [B, Tq, W]
+        return ((slot_pos[:, None, :] >= 0) & (delta >= 0) & (delta < self.context))[:, None]
 
-    def _banded_sdpa(self, q, k_cache, v_cache, pos0: int, positions):
+    def _banded_sdpa(self, q, k_cache, v_cache, pos0, positions):
         """Windowed attention; chunks of whole 128-query blocks read only a
         (context + 127)-wide key band per block. Masked entries underflow to
         exactly 0 in the float32 softmax, so the banded form equals the
@@ -233,10 +234,13 @@ class WindowedRingAttention:
         capacity = k_cache.shape[1]
         Q = self._QBLOCK
         W = ((self.context - 1 + Q) + 127) // 128 * 128
-        base = pos0 + T - capacity  # absolute position held by slot 0
+        if not isinstance(pos0, torch.Tensor):  # one position for the whole batch
+            pos0 = torch.full((q.shape[0],), pos0, dtype=torch.int32, device=q.device)
+        # Slot j of stream b holds absolute position (pos0[b] + T) - capacity + j.
         ar = torch.arange(capacity, dtype=torch.int32, device=q.device)
+        slot_pos = (pos0.to(torch.int32) + (T - capacity))[:, None] + ar[None, :]
         if T % Q or W >= capacity:
-            return sdpa_slots(q, k_cache, v_cache, self._valid(base + ar, positions))
+            return sdpa_slots(q, k_cache, v_cache, self._valid(slot_pos, positions))
         outs = []
         for i in range(T // Q):
             s = max(0, min(capacity - W, capacity - T + (i + 1) * Q - W))
@@ -245,7 +249,7 @@ class WindowedRingAttention:
                     q[:, i * Q : (i + 1) * Q],
                     k_cache[:, s : s + W],
                     v_cache[:, s : s + W],
-                    self._valid(base + s + ar[:W], positions[:, i * Q : (i + 1) * Q]),
+                    self._valid(slot_pos[:, s : s + W], positions[:, i * Q : (i + 1) * Q]),
                 )
             )
         return torch.cat(outs, dim=1)

@@ -12,6 +12,8 @@ from typing import Callable, Optional
 
 import torch
 
+from pocket_tts_tpu_torch.utils.transfer import host_to_device
+
 
 def lsd_decode(
     v_t: Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor],
@@ -36,8 +38,9 @@ def sample_noise(
     device="cpu",
 ) -> torch.Tensor:
     """N(0, temp) float32 noise with optional symmetric clamping, drawn from a
-    CPU generator (one stream whatever the device) and moved to `device`."""
+    CPU generator (one stream whatever the device) and queued to `device`
+    without a host sync."""
     noise = torch.randn(shape, generator=gen, dtype=torch.float32) * (float(temp) ** 0.5)
     if noise_clamp is not None:
         noise = noise.clamp(-noise_clamp, noise_clamp)
-    return noise.to(device)
+    return host_to_device(noise, device)

@@ -129,7 +129,7 @@ class StreamingTransformer:
             state["widx"] = 0  # one host-side write index for the whole stack
         return state
 
-    def __call__(self, params, x, state, positions, pos0: int | None = None,
+    def __call__(self, params, x, state, positions, pos0=None,
                  read_limit: int | None = None) -> torch.Tensor:
         """Run the stack on x [B, T, E] at positions [B, T], updating `state`
         in place (flow_lm: appends at state["widx"], which advances by T;
@@ -192,7 +192,7 @@ class ProjectedTransformer:
     def init_state(self, batch_size: int, capacity: int, dtype=torch.float32, device="cpu") -> State:
         return self.transformer.init_state(batch_size, capacity, dtype, device)
 
-    def __call__(self, params, x, state, positions, pos0: int) -> tuple[torch.Tensor, ...]:
+    def __call__(self, params, x, state, positions, pos0) -> tuple[torch.Tensor, ...]:
         h = x.transpose(1, 2)  # [B, C, T] -> [B, T, C]
         if "input_proj" in params:
             h = linear(h, params["input_proj"]["weight"])

@@ -1,4 +1,4 @@
-"""Importing the PyTorch port (its package root, every module and the three
+"""Importing the PyTorch port (its package root, its entry points and the
 kernel modules) pulls in neither jax, the JAX package nor triton, and needs
 no nvcc: kernels build only when a CUDA tensor first reaches a wrapper."""
 
@@ -21,6 +21,10 @@ MODULES = [
     "pocket_tts_tpu_torch.ops._cuda",
     "pocket_tts_tpu_torch.models.tts_model",
     "pocket_tts_tpu_torch.conditioners.text",
+    "pocket_tts_tpu_torch.serving.engine",
+    "pocket_tts_tpu_torch.serving.server",
+    "pocket_tts_tpu_torch.ops.probes",
+    "pocket_tts_tpu_torch.probes",
 ]
 
 
