@@ -12,10 +12,13 @@ Phases (any failure exits non-zero and prints no result line):
      b6369a24 geometry with a prefilled C=256 cache: fused_backbone_step for
      a BOS and a non-BOS frame (and at C=512), fused_segment_decode at S=8
      and S=64 (outputs, full updated caches, slot_pos); batch_decode_attention
-     at H=16, d=64, B=64 for bf16 and int8 caches, C=512 with read_rows 512
-     and 256 (rows past 256 poisoned) and C=384 read whole, holes, -1 rows,
-     varied query positions, one stream with no valid row (its output must
-     be exactly 0);
+     at H=16, d=64 for bf16 and int8 caches (BATCH_CASES: B=64 with C=512
+     read at 512 and 256 and C=384 read at 384 and a ragged 200, rows past
+     the limit poisoned; the 4-voice batch's B=4 x 512 read at 512, 384 and
+     256; B=8 x 4096; B=2 x 4096 read whole and at 2600; B=2 x 16384),
+     float32 caches and a bf16 q, holes, -1
+     rows, varied query positions, one stream with no valid row (its output
+     must be exactly 0), and NaN in every hole row;
   4. the main path: TTSModel.load_model(param_dtype="int8") at b6369a24
      width (seeded random weights), the "alba" voice, generate_audio_stream
      and generate_audio on a two-sentence text; every streamed frame is 1920
@@ -35,9 +38,14 @@ Phases (any failure exits non-zero and prints no result line):
      times per decoded frame (every batch decode attention went through the
      kernel); copy_state leaves the voices bit-identical;
   7. batch timings beside the card's name and power limit: the batch kernel's
-     device time per call (torch.profiler kernel times) vs its plain version
-     and (bf16) scaled_dot_product_attention at B=64, R=512 with every row
-     valid, against the K+V read bound; the B=64 device ms per decode step
+     device time per call (torch.profiler kernel times; one kernel per call),
+     its device wall per call in a replayed CUDA graph of 50 calls and its
+     wall per call between CUDA events around 50 calls from the host (the
+     wrapper's host time included), vs its plain version and (bf16)
+     scaled_dot_product_attention at B=64, R=512 with every row valid,
+     against the K+V read bound, and at the server engine's B=8 x 4096, the
+     4-voice batch's B=4 x 512 and the engine's largest read, B=2 x 16384
+     (bf16 and int8); the B=64 device ms per decode step
      and per frame of a 64-frame segment (CUDA events); the aggregate
      real-time factor of generate_audio_batch at B=64 (median of warm runs);
      a torch.profiler breakdown of one warm B=64 run;
@@ -68,8 +76,11 @@ Phases (any failure exits non-zero and prints no result line):
      then 8 concurrent GETs return 200 and a 24 kHz 16-bit WAV of whole
      frames, a burst of 40 more draws at least one 503 with Retry-After >= 1,
      /x is 404 and empty text 400; the median time to the first PCM byte;
- 11. each kernel against its plain version at every capacity the engines of
-     phases 9-10 decoded at that phases 3-5 did not compare.
+ 11. a 2-slot engine constructed at capacity=200 (off the B=1 kernels'
+     32-row grid; it rounds up to 224) serves two short requests, every step
+     through the batch kernel at a ragged 224 rows; then each kernel against
+     its plain version at every capacity the engines of phases 9-11 decoded
+     at that phases 3-5 did not compare.
 
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.
@@ -78,7 +89,6 @@ The second-to-last line is the kernels' JSON record, the last line
 from __future__ import annotations
 
 import collections
-import contextlib
 import copy
 import itertools
 import json
@@ -119,7 +129,18 @@ TOL_SEGMENT_MEAN = 2e-2
 # batch_decode_attention: the JAX package's gates for its kernel against the
 # XLA oracle (tests/test_batch_attention.py:47,76). The CUDA kernel rounds
 # at the plain version's points, so it differs by float32 sum order only.
-TOL_BATCH = {"bf16": 2e-2, "int8": 3e-2}
+TOL_BATCH = {"bf16": 2e-2, "int8": 3e-2, "float32": 2e-2}
+# batch_decode_attention comparisons of phase 3: (B, C, read_rows in
+# decreasing order). C=512 read whole and at the 256 limit, C=384 whole and
+# at a ragged 200 (rows past each limit poisoned), the 4-voice batch's B=4 x
+# 512 at its three read limits, the server engine's B=8 x 4096 (2-block
+# clusters), B=2 x 4096 whole (8-block clusters) and at R=2600 (5-block
+# clusters whose last block holds fewer rows), and the engine's largest
+# read, 4 x 4096 rows (8-block clusters).
+BATCH_CASES = ((64, 512, (512, 256)), (64, 384, (384, 200)), (4, 512, (512, 384, 256)), (8, 4096, (4096,)),
+               (2, 4096, (4096, 2600)), (2, 16384, (16384,)))
+# Phase 7 times the batch kernel at B=64, R=512 and at these (B, R).
+TIMED_SHAPES = ((8, 4096), (4, 512), (2, 16384))
 # head_slice_weighted_sum: float32 sums of 16 bf16 x small-integer products,
 # each exact; another summation order moves only the last bits.
 TOL_PROBE_SUM = 1e-5  # relative to the largest |output|
@@ -141,6 +162,19 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them (printed)."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if smi.returncode != 0:
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    return card
+
+
 def main() -> None:
     if not (ROOT / "pocket_tts_tpu_torch").is_dir():
         fail("pocket_tts_tpu_torch/ not found next to chip_smoke.py; run from a checkout of the repository")
@@ -150,14 +184,7 @@ def main() -> None:
     # ---------------------------------------------------------------- phase 1
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    if smi.returncode != 0:
-        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    card = smi.stdout.strip().splitlines()[0]
-    print(card, flush=True)
+    card = card_line()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -254,9 +281,15 @@ def main() -> None:
         compare_step(prefilled(512), False, 100)  # the engines grow to 512
         compare_segment(base, 8, True)
         compare_segment(base, 64, False)
-        errs["batch_decode_attention"] = compare_batch_attention(
-            torch, dev, batch_decode_attention, batch_decode_attention_reference, ((64, 512, (512, 256)), (64, 384, (384,))))
-    step_caps, batch_caps = {C_TEST, 512}, {(64, 512), (64, 384)}  # compared so far
+        errs["batch_decode_attention"] = max(
+            compare_batch_attention(torch, dev, batch_decode_attention, batch_decode_attention_reference,
+                                    BATCH_CASES),
+            compare_batch_attention(torch, dev, batch_decode_attention, batch_decode_attention_reference,
+                                    ((64, 384, (384, 200)), (2, 4096, (4096, 2600))), kinds=("float32", "bf16"),
+                                    q_dtype=torch.bfloat16),
+            compare_nan_holes(torch, dev, batch_decode_attention, batch_decode_attention_reference),
+        )
+    step_caps, batch_caps = {C_TEST, 512}, {(B, C) for B, C, _ in BATCH_CASES}  # compared so far
 
     # ---------------------------------------------------------------- phase 4
     voice = model.get_state_for_audio_prompt("alba")
@@ -388,7 +421,7 @@ def main() -> None:
     # ---------------------------------------------------------------- phases 6-7
     batch = batch_path(torch, model, card, batch_decode_attention, fused_backbone_step, fused_segment_decode)
     timings["batch_decode_attention"], bounds["batch_decode_attention"], library = time_batch_attention(
-        torch, dev, card, batch_decode_attention, batch_decode_attention_reference, device_ms)
+        torch, dev, card, batch_decode_attention, batch_decode_attention_reference)
     library = {"batch_decode_attention": library}
     batch_timings(torch, model, card, device_ms)
 
@@ -405,17 +438,19 @@ def main() -> None:
     server_caps = server_phase(torch, model, card)
 
     # ---------------------------------------------------------------- phase 11
+    off_grid_caps = off_grid_engine(model, card, batch_decode_attention)
     with torch.no_grad():
         for C in sorted(served["step_capacities"] - step_caps):
             compare_step(prefilled(C), False, 100)
-        cases = sorted({(64, C) for C in served["batch_capacities"]} | {(8, C) for C in server_caps})
+        cases = sorted({(64, C) for C in served["batch_capacities"]} | {(8, C) for C in server_caps}
+                       | {(2, C) for C in off_grid_caps})
         cases = [(B, C, (C,)) for B, C in cases if (B, C) not in batch_caps]
         if cases:
             errs["batch_decode_attention"] = max(errs["batch_decode_attention"], compare_batch_attention(
                 torch, dev, batch_decode_attention, batch_decode_attention_reference, cases))
     print(f"engine capacities: 64 slots {sorted(served['batch_capacities'])}, 1 slot "
-          f"{sorted(served['step_capacities'])}, server (8 slots) {sorted(server_caps)}; each compared above",
-          flush=True)
+          f"{sorted(served['step_capacities'])}, server (8 slots) {sorted(server_caps)}, 2 slots "
+          f"{sorted(off_grid_caps)}; each compared above", flush=True)
 
     def entry(name, source, replaces, n_launches):
         return {
@@ -447,10 +482,14 @@ def main() -> None:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
 
 
+def zero_row_stream(B: int) -> int:
+    return min(3, B - 1)
+
+
 def batch_attention_inputs(torch, dev, B=64, C=512, H=16, d=64, seed=2):
     """q [B, H, 1, d] float32, bf16 k/v [B, C, H, d], slot_pos and qpos with
     per-stream valid prefixes, holes, rows past the query position, and
-    stream 3 without a valid row."""
+    one stream (zero_row_stream) without a valid row."""
     g = torch.Generator().manual_seed(seed)
     q = torch.randn(B, H, 1, d, generator=g)
     k, v = torch.randn(B, C, H, d, generator=g), torch.randn(B, C, H, d, generator=g)
@@ -461,24 +500,27 @@ def batch_attention_inputs(torch, dev, B=64, C=512, H=16, d=64, seed=2):
         sp[b, :n] = torch.arange(n, dtype=torch.int32)
         sp[b, torch.randperm(n, generator=g)[: n // 10]] = -1
     qpos = (lens - torch.randint(0, 24, (B,), generator=g)).clamp(min=0).to(torch.int32)
-    sp[3] = -1
+    sp[zero_row_stream(B)] = -1
     return [t.to(dev) for t in (q, k.to(torch.bfloat16), v.to(torch.bfloat16), sp, qpos)]
 
 
-def compare_batch_attention(torch, dev, kernel, plain, cases) -> float:
-    """Kernel vs plain version for bf16 and int8 caches; `cases` holds
-    (B, C, read_rows in decreasing order); the rows past a read limit below
-    C are poisoned in the cache. Returns the largest error."""
+def compare_batch_attention(torch, dev, kernel, plain, cases, kinds=("bf16", "int8"), q_dtype=None) -> float:
+    """Kernel vs plain version for each cache kind; `cases` holds (B, C,
+    read_rows in decreasing order); the rows past a read limit below C are
+    poisoned in the cache. q is float32 unless q_dtype says otherwise.
+    Returns the largest error."""
     from pocket_tts_tpu_torch.ops.attention import quantize_kv_rows
 
     worst = 0.0
     for B, C, reads in cases:
         q, k, v, sp, qpos = batch_attention_inputs(torch, dev, B=B, C=C)
-        for kind in ("bf16", "int8"):
+        q, z = q if q_dtype is None else q.to(q_dtype), zero_row_stream(B)
+        for kind in kinds:
             if kind == "int8":
                 (kk, ks), (vv, vs) = quantize_kv_rows(k), quantize_kv_rows(v)
             else:
-                kk, vv, ks, vs = k.clone(), v.clone(), None, None
+                dt = torch.float32 if kind == "float32" else torch.bfloat16
+                kk, vv, ks, vs = k.to(dt, copy=True), v.to(dt, copy=True), None, None
             for R in reads:
                 if R < C:  # a row the kernel must not read
                     kk[:, R:] = 127 if kind == "int8" else float("nan")
@@ -490,12 +532,44 @@ def compare_batch_attention(torch, dev, kernel, plain, cases) -> float:
                 out, ref = kernel(*args, read_rows=R), plain(*args, read_rows=R)
                 torch.cuda.synchronize()
                 err = max_err(out, ref)
-                print(f"batch_decode_attention {kind} B={B} C={C} R={R}: max|err| {err:.3g} (tol {TOL_BATCH[kind]}), "
-                      f"zero-row stream exactly 0: {bool((out[3] == 0).all())}", flush=True)
-                if not (err <= TOL_BATCH[kind] and bool(torch.isfinite(out).all()) and bool((out[3] == 0).all())):
+                zero = bool((out[z] == 0).all())
+                print(f"batch_decode_attention {kind} cache, {q.dtype} q, B={B} C={C} R={R}: max|err| {err:.3g} "
+                      f"(tol {TOL_BATCH[kind]}), zero-row stream exactly 0: {zero}", flush=True)
+                if not (err <= TOL_BATCH[kind] and bool(torch.isfinite(out).all()) and zero
+                        and out.dtype == ref.dtype):
                     fail(f"batch_decode_attention {kind} B={B} C={C} R={R}: err {err:.4g}, or non-finite, "
-                         f"or stream 3 not 0")
+                         f"or stream {z} not 0, or dtype {out.dtype} != {ref.dtype}")
                 worst = max(worst, err)
+    return worst
+
+
+def compare_nan_holes(torch, dev, kernel, plain) -> float:
+    """The kernel fetches boxes of rows, so it reads the hole rows (slot_pos
+    -1) of a box that holds a valid row, and selects them away: NaN in every
+    hole of K and V (bf16) or of their row scales (int8) leaves the output
+    within TOL_BATCH of the plain version's on the clean cache. Returns the
+    largest error."""
+    from pocket_tts_tpu_torch.ops.attention import quantize_kv_rows
+
+    q, k, v, sp, qpos = batch_attention_inputs(torch, dev, B=64, C=512)
+    holes, worst = sp < 0, 0.0
+    for kind in ("bf16", "int8"):
+        kk, vv, ks, vs = k.clone(), v.clone(), None, None
+        if kind == "int8":
+            (kk, ks), (vv, vs) = quantize_kv_rows(k), quantize_kv_rows(v)
+        ref = plain(q, kk, vv, sp, qpos, ks, vs)
+        if kind == "int8":
+            ks[holes], vs[holes] = float("nan"), float("nan")
+        else:
+            kk[holes], vv[holes] = float("nan"), float("nan")
+        out = kernel(q, kk, vv, sp, qpos, ks, vs)
+        torch.cuda.synchronize()
+        err = max_err(out, ref)
+        print(f"batch_decode_attention {kind}, NaN in every hole row: max|err| {err:.3g} against the clean cache's "
+              f"plain version (tol {TOL_BATCH[kind]})", flush=True)
+        if not (err <= TOL_BATCH[kind] and bool(torch.isfinite(out).all())):
+            fail(f"batch_decode_attention {kind}: NaN hole rows moved the output by {err:.4g} or made it non-finite")
+        worst = max(worst, err)
     return worst
 
 
@@ -545,36 +619,86 @@ def batch_path(torch, model, card, batch_kernel, step_kernel, segment_kernel) ->
     return {"launches": total, "model_kv_int8": model8}
 
 
-def kernel_ms(torch, fn, reps: int) -> float:
-    """Device time per call of fn: the sum of its kernels' times from
-    torch.profiler (CUPTI), so the host's enqueue rate does not enter."""
+def kernel_profile(torch, fn, reps: int) -> tuple[float, float]:
+    """Device time per call of fn, the sum of its kernels' times from
+    torch.profiler (CUPTI), so the host's enqueue rate does not enter; and
+    the kernels it launches per call."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+    # CUPTI now and then delivers no kernel record for a short window; such a
+    # window is measured again, at most three times in all.
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        total = sum(e.self_device_time_total for e in kernels)
+        if total > 0:
+            return total / reps / 1e3, sum(e.count for e in kernels) / reps
+    fail("torch.profiler recorded no kernel time in three windows")
+
+
+def kernel_ms(torch, fn, reps: int) -> float:
+    return kernel_profile(torch, fn, reps)[0]
+
+
+def graph_ms(torch, fn, calls: int = 50, replays: int = 10) -> float:
+    """Device wall per call with the gaps between launches: CUDA events
+    around replays of a CUDA graph of `calls` captured calls of fn (a
+    measurement only; the port never runs a graph)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
             fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    total = sum(e.self_device_time_total for e in kernels)
-    if total <= 0:
-        fail("torch.profiler recorded no kernel time")
-    return total / reps / 1e3
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
 
 
-def time_batch_attention(torch, dev, card, kernel, plain, device_ms):
-    """Per-call device times (kernel_ms) at B=64, R=512, every row valid:
-    kernel, plain version and (bf16) scaled_dot_product_attention with the
-    boolean mask; the bound is the K+V read. The kernel's CUDA-event time
-    per call, which includes the wrapper's host time, is printed beside.
-    Returns the bf16 kernel's (ms, plain ms), its bound and the SDPA time."""
+def event_ms(torch, fn, calls: int = 50) -> float:
+    """Wall per call between CUDA events around `calls` calls of fn issued
+    back to back: the device time, or the host's time per call where that
+    is longer."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def attention_timings(torch, dev, kernel, plain=None, B=64, C=512) -> dict:
+    """The batch kernel at B streams over C rows, every row valid, bf16 and
+    int8 caches: device ms per call (torch.profiler kernel time), kernels
+    per call, device wall per call in a CUDA graph of 50 calls, wall per
+    call between CUDA events around 50 calls from the host, the bound (the
+    K+V read); with `plain`, the plain version's kernel time, and for bf16
+    scaled_dot_product_attention with the boolean mask (kernel time and
+    graph wall). -> {kind: {...}}."""
     import torch.nn.functional as F
 
     from pocket_tts_tpu_torch.ops.attention import quantize_kv_rows
 
-    q, k, v, _, _ = batch_attention_inputs(torch, dev, seed=3)
-    B, C, H, d = k.shape
+    q, k, v, _, _ = batch_attention_inputs(torch, dev, B=B, C=C, seed=3)
+    H, d = k.shape[2:]
     sp = torch.arange(C, dtype=torch.int32, device=dev).expand(B, C).contiguous()
     qpos = torch.full((B,), C, dtype=torch.int32, device=dev)
     (k8, ks), (v8, vs) = quantize_kv_rows(k), quantize_kv_rows(v)
@@ -583,21 +707,48 @@ def time_batch_attention(torch, dev, card, kernel, plain, device_ms):
     result = {}
     for kind, args in (("bf16", (q, k, v, sp, qpos, None, None)), ("int8", (q, k8, v8, sp, qpos, ks, vs))):
         nbytes = 2 * k.numel() * args[1].element_size() + small + (2 * ks.numel() * 4 if kind == "int8" else 0)
-        ms = kernel_ms(torch, lambda: kernel(*args, read_rows=C), 50)
-        event_ms = device_ms(lambda: kernel(*args, read_rows=C), 50)
-        plain_ms = kernel_ms(torch, lambda: plain(*args, read_rows=C), 10)
-        result[kind] = (ms, plain_ms, bound(nbytes, ops), event_ms)
-    qb, kt, vt = q.to(torch.bfloat16), k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
-    mask = ((sp >= 0) & (sp <= qpos[:, None]))[:, None, None, :]
-    sdpa_ms = kernel_ms(torch, lambda: F.scaled_dot_product_attention(qb, kt, vt, attn_mask=mask), 50)
-    for kind, (ms, plain_ms, (b_ms, _), event_ms) in result.items():
-        extra = f", scaled_dot_product_attention {sdpa_ms * 1e3:.1f} us" if kind == "bf16" else ""
-        print(f"batch_decode_attention {kind} B=64 R=512 all rows valid: {ms * 1e3:.1f} us/call of device time "
-              f"(CUDA kernel, {b_ms / ms:.0%} of the bound; {event_ms * 1e3:.1f} us/call by CUDA events with the "
-              f"wrapper's host time) vs {plain_ms * 1e3:.1f} us (plain PyTorch){extra}; bound {b_ms * 1e3:.1f} us "
-              f"at 3.35 TB/s; torch.profiler kernel times [{card}]", flush=True)
-    ms, plain_ms, bnd, _ = result["bf16"]
-    return (ms, plain_ms), bnd, sdpa_ms
+        ms, per_call = kernel_profile(torch, lambda: kernel(*args, read_rows=C), 50)
+        result[kind] = {"ms": ms, "kernels_per_call": per_call, "bound_ms": bound(nbytes, ops),
+                        "graph_ms": graph_ms(torch, lambda: kernel(*args, read_rows=C)),
+                        "event_ms": event_ms(torch, lambda: kernel(*args, read_rows=C))}
+        if plain is not None:
+            result[kind]["plain_ms"] = kernel_ms(torch, lambda: plain(*args, read_rows=C), 10)
+    if plain is not None:
+        qb, kt, vt = q.to(torch.bfloat16), k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+        mask = ((sp >= 0) & (sp <= qpos[:, None]))[:, None, None, :]
+        sdpa = lambda: F.scaled_dot_product_attention(qb, kt, vt, attn_mask=mask)  # noqa: E731
+        result["bf16"]["sdpa_ms"], result["bf16"]["sdpa_graph_ms"] = kernel_ms(torch, sdpa, 50), graph_ms(torch, sdpa)
+    return result
+
+
+def time_batch_attention(torch, dev, card, kernel, plain):
+    """Phase 7's kernel timings at B=64, R=512 (and at TIMED_SHAPES), every
+    row valid: torch.profiler kernel time, kernels per call (must be 1), the
+    device wall per call of a CUDA graph of 50 calls, the wall per call
+    between CUDA events around 50 host calls, the plain version and (bf16)
+    scaled_dot_product_attention; the bound is the K+V read. Returns the
+    bf16 kernel's (ms, plain ms), its bound and the SDPA time."""
+    result = attention_timings(torch, dev, kernel, plain)
+    rows = [("B=64 R=512", kind, t) for kind, t in result.items()]
+    for B, C in TIMED_SHAPES:
+        rows += [(f"B={B} R={C}", kind, t) for kind, t in attention_timings(torch, dev, kernel, B=B, C=C).items()]
+    for shape, kind, t in rows:
+        if t["kernels_per_call"] != 1:
+            fail(f"batch_decode_attention {kind} {shape}: {t['kernels_per_call']} kernels per call, not 1")
+        b_ms = t["bound_ms"][0]
+        extra = ""
+        if "plain_ms" in t:
+            extra = f" vs {t['plain_ms'] * 1e3:.1f} us (plain PyTorch)"
+        if "sdpa_ms" in t:
+            extra += (f", scaled_dot_product_attention {t['sdpa_ms'] * 1e3:.1f} us ({t['sdpa_graph_ms'] * 1e3:.1f} us "
+                      "in a graph)")
+        print(f"batch_decode_attention {kind} {shape} all rows valid: {t['ms'] * 1e3:.1f} us/call of device time "
+              f"(CUDA kernel, {t['kernels_per_call']:g} kernel per call, {b_ms / t['ms']:.0%} of the bound; "
+              f"{t['graph_ms'] * 1e3:.1f} us/call of device wall in a CUDA graph of 50 calls; "
+              f"{t['event_ms'] * 1e3:.1f} us/call between CUDA events around 50 host calls){extra}; bound "
+              f"{b_ms * 1e3:.1f} us at 3.35 TB/s; torch.profiler kernel times [{card}]", flush=True)
+    t = result["bf16"]
+    return (t["ms"], t["plain_ms"]), t["bound_ms"], t["sdpa_ms"]
 
 
 def batch_timings(torch, model, card, device_ms) -> None:
@@ -605,8 +756,6 @@ def batch_timings(torch, model, card, device_ms) -> None:
     generate_audio_batch (median of warm runs), device ms per decode step
     and per frame of a 64-frame segment (CUDA events, host gaps included),
     and a torch.profiler breakdown of one warm run."""
-    from torch.profiler import ProfilerActivity, profile
-
     from pocket_tts_tpu_torch.models.generate import initial_carry, run_segment
     from pocket_tts_tpu_torch.models.tts_model import stack_states
 
@@ -623,17 +772,7 @@ def batch_timings(torch, model, card, device_ms) -> None:
           f"(min {rtfs[0]:.1f}, max {rtfs[-1]:.1f}; {RUNS_BATCH_RTF} warm runs, "
           f"{model.last_generation['frames']} frames per stream decoded) [{card}]", flush=True)
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        model.generate_audio_batch(voice, BATCH_TEXTS)
-        torch.cuda.synchronize()
-        wall_ms = (time.monotonic() - t0) * 1e3
-    # Kernel events only: an operator's entry repeats the device time of the
-    # kernels it launched.
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    split = _busy_by_kind(kernels)
+    wall_ms, busy_ms, split, kernels = profiled_busy(torch, lambda: model.generate_audio_batch(voice, BATCH_TEXTS))
     print(f"profile of one warm generate_audio_batch B=64: wall {wall_ms:.1f} ms with the profiler on, device busy "
           f"{busy_ms:.1f} ms in {sum(e.count for e in kernels)} kernels; idle share "
           f"{1 - busy_ms / (statistics.median(walls) * 1e3):.2f} against the median unprofiled wall "
@@ -866,30 +1005,7 @@ def engine_phase(torch, model, model8, card, batch_kernel, step_kernel, segment_
     if not all(torch.equal(x, y) for x, y in zip(_tensors(voice.tree), _tensors(snapshot))):
         fail("engine: serving changed the voice state")
 
-    # 10 warm ticks after 64 admissions, twice on the same workload: once
-    # unprofiled for the wall (then drained), once under the profiler for
-    # the device busy time, which the profiler's host cost does not change.
-    from torch.profiler import ProfilerActivity, profile
-
-    def window(prof=None):
-        for t in BATCH_TEXTS:
-            engine.submit(t, voice)
-        engine.run(max_ticks=4)
-        torch.cuda.synchronize()
-        with prof or contextlib.nullcontext():
-            t0 = time.monotonic()
-            engine.run(max_ticks=10)
-            torch.cuda.synchronize()
-        return (time.monotonic() - t0) * 1e3
-
-    window_ms = window()
-    engine.run()
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    profiled_ms = window(prof)
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    split = _busy_by_kind(kernels)
+    window_ms, profiled_ms, busy_ms, split, kernels = engine_window(torch, engine, voice)
     print(f"engine profile, 10 warm ticks after 64 admissions: wall {window_ms:.1f} ms unprofiled "
           f"({profiled_ms:.1f} ms with the profiler on), device busy {busy_ms:.1f} ms in "
           f"{sum(e.count for e in kernels)} kernels, idle share {1 - busy_ms / window_ms:.2f} against the "
@@ -933,8 +1049,80 @@ def engine_phase(torch, model, model8, card, batch_kernel, step_kernel, segment_
             "batch_capacities": batch_caps | caps, "step_capacities": step_caps}
 
 
+def profiled_busy(torch, fn):
+    """Run fn under torch.profiler -> (wall ms with the profiler on, device
+    busy ms, busy ms by kind, kernel events). Kernel events only: an
+    operator's entry repeats the device time of the kernels it launched."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    return wall_ms, busy_ms, _busy_by_kind(kernels), kernels
+
+
+def engine_window(torch, engine, voice):
+    """10 warm ticks after 64 admissions, twice on the same workload: once
+    unprofiled for the wall (then drained), once under the profiler for the
+    device busy time, which the profiler's host cost does not change.
+    -> (unprofiled wall ms, profiled wall ms, busy ms, busy ms by kind,
+    kernel events)."""
+
+    def admit():
+        for t in BATCH_TEXTS:
+            engine.submit(t, voice)
+        engine.run(max_ticks=4)
+        torch.cuda.synchronize()
+
+    admit()
+    t0 = time.monotonic()
+    engine.run(max_ticks=10)
+    torch.cuda.synchronize()
+    window_ms = (time.monotonic() - t0) * 1e3
+    engine.run()
+    admit()
+    return (window_ms, *profiled_busy(torch, lambda: engine.run(max_ticks=10)))
+
+
+def off_grid_engine(model, card, batch_kernel) -> set:
+    """Phase 11: a 2-slot engine constructed at capacity=200, off the B=1
+    kernels' 32-row grid, serves two short requests; it rounds the capacity
+    up to 224, and text_pad=16 keeps the requests' need below that, so every
+    step reads a ragged 224 rows. Returns the capacities it decoded at."""
+    import numpy as np
+
+    from pocket_tts_tpu_torch.serving.engine import TTSEngine
+
+    voice = model.get_state_for_audio_prompt("alba")
+    engine = TTSEngine(model, slots=2, segment_frames=4, capacity=200, text_pad=16)
+    caps = _track_capacities(engine)
+    pair = ["The quick brown fox.", "A bright cold day."]
+    batch_kernel.launches = 0
+    handles = [engine.submit(t, voice) for t in pair]
+    engine.run()
+    audios = [h.audio() for h in handles]
+    got = [a.shape[0] // 1920 for a in audios]
+    expected = [_expected_frames(model, t, engine.text_pad) for t in pair]
+    layers = model.flow_lm.config.transformer.num_layers
+    print(f"engine capacity=200, 2 slots: capacity {engine.capacity}, growths {engine.growths}, frames per request "
+          f"{got}, {engine.frames_dispatched} frames dispatched, batch kernel launches {batch_kernel.launches} "
+          f"[{card}]", flush=True)
+    if engine.capacity != 224 or engine.growths or got != expected or any(not np.isfinite(a).all() for a in audios):
+        fail(f"engine capacity=200: capacity {engine.capacity}, growths {engine.growths}, frames {got} (expected "
+             f"{expected}), or non-finite audio")
+    if batch_kernel.launches != layers * engine.frames_dispatched:
+        fail(f"engine capacity=200: {batch_kernel.launches} batch kernel launches for {engine.frames_dispatched} "
+             f"frames x {layers} layers")
+    return caps
+
+
 def _busy_by_kind(kernels) -> dict:
-    categories = {"batch attention": ("scores_kernel", "pv_kernel", "combine_kernel"),
+    categories = {"batch attention": ("decode_attention_kernel",),
                   "GEMM": ("gemm", "xmma", "gemv"), "convolution": ("conv", "cudnn"), "copy/cast": ("copy",)}
     split = dict.fromkeys([*categories, "other elementwise"], 0.0)
     for e in kernels:

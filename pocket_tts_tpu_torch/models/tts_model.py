@@ -527,6 +527,8 @@ def _load_weights(params: dict, cfg: Config, allow_random_init: bool) -> bool:
     """Checkpoint resolution of the JAX package (local files only in the
     port) -> True when the weights stay random."""
     if cfg.flow_lm.weights_path is not None:
+        if cfg.mimi.weights_path is None:
+            raise ValueError("If you specify flow_lm.weights_path you should specify mimi.weights_path")
         flat = load_safetensors(download_if_necessary(str(cfg.flow_lm.weights_path)))
         load_state_dict(params["flow_lm"], flat)
         flat = load_safetensors(download_if_necessary(str(cfg.mimi.weights_path)))

@@ -141,9 +141,10 @@ _SIGNATURES = {
     "ptt_fused_backbone_step": ([_P, _P, _I, _I, _I, _P, _P, _P], _I),
     # (PttBackbone*, PttFlow*, latent, is_bos, noise, S, qpos0, widx0, latents_out, eos_out, stream)
     "ptt_fused_segment_decode": ([_P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P], _I),
-    # (q, k, v, kind, slot_pos, sp_stride, qpos, k_scale, v_scale, sc_stride, B, C, H, R,
-    #  scores, part, part_out, out, stream)
-    "ptt_batch_decode_attention": ([_P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P], _I),
+    # (q, q_kind, q_sb, q_sh, k, v, kind, slot_pos, sp_stride, qpos, k_scale, v_scale, sc_stride,
+    #  B, C, H, R, threads, stages, split, chunk, smem, out, stream)
+    "ptt_batch_decode_attention": (
+        [_P, _I, _I, _I, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P], _I),
     # (cache, row, index, C, E, stream)
     "ptt_row_write": ([_P, _P, _P, _I, _I, _P], _I),
     # (x, out, C, heads, width, stream)

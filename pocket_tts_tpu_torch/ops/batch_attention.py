@@ -4,7 +4,7 @@ Replaces pocket_tts_tpu/ops/batch_attention.py:batch_decode_attention (the
 Pallas kernel `_kernel`). Contract, per stream b and head h:
 
   - one query q[b, h] over the slot-major cache k, v [B, C, H, d], rows
-    [0, R) only (R = read_rows, C by default);
+    [0, R) only (R = read_rows, C by default, any R in (0, C]);
   - row r is valid when 0 <= slot_pos[b, r] <= qpos[b];
   - softmax(q k^T / sqrt(d)) v in float32 over the valid rows, with the
     roundings of ops/attention.sdpa_slots: q and the softmax weights in bf16
@@ -13,12 +13,18 @@ Pallas kernel `_kernel`). Contract, per stream b and head h:
   - a stream with no valid row outputs 0.
 
 What bounds it on the H100: the K and V rows it reads, 2*B*R*H*d bytes per
-call (bf16 at B=64, R=512, H*d=1024: 134 MB, 40 us at 3.35 TB/s; int8 half
-that plus the scales). csrc/batch_attention.cu streams each head's rows with
-16-byte loads over a (R/128, H, B) grid in two passes (scores, then the
-weighted V sum with the softmax combined across splits) and a small combine;
-it reads the full cache buffer bounded by read_rows, never a sliced copy,
-and skips invalid rows.
+call (bf16 at B=64, R=512, H*d=1024: 134 MB, 40.3 us at 3.35 TB/s; int8 half
+that plus the scales). csrc/batch_attention.cu is one launch per call: one
+block per (stream, head) streams that head's K rows and then its V rows
+through a ring of row tiles that the Tensor Memory Accelerator fills, keeps
+the scores in shared memory for the exact softmax, and fetches no tile
+without a valid row and no row at or past R. A long read, or a call of few
+(stream, head) items, is cut into row chunks across the blocks of a
+thread-block cluster, which exchange their max, denominator and partial
+outputs through distributed shared memory. It reads the full cache buffer
+bounded by read_rows, never a sliced copy, and the wrapper allocates only
+the output. `launch_config` picks the block width, the ring's stages and the
+split.
 
 `batch_decode_attention` launches the kernel for CUDA tensors (or raises)
 and runs `batch_decode_attention_reference`, the plain PyTorch version, for
@@ -27,12 +33,107 @@ CPU tensors. `batch_decode_attention.launches` counts kernel launches.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from pocket_tts_tpu_torch.ops.attention import sdpa_slots
 
-_SPLIT_ROWS = 128  # rows per split of the kernel (kRows in csrc/batch_attention.cu)
 _KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_Q_KINDS = {torch.float32: 0, torch.bfloat16: 1}
+
+# One block's shared memory (csrc/batch_attention.cu:Geo): an mbarrier per
+# stage, `stages` ring slots of a row tile (plus, int8, its row scales,
+# padded to 128 bytes per box), a [warps][64] float32 reduction buffer, the
+# cluster's exchange (max, denominator and a [64] partial output, float32),
+# and per row of its chunk (padded to a multiple of the tile and of 64) a
+# float32 score and a validity bit.
+_ELEMENT_BYTES = {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}
+_BAR_BYTES = 16 * 8
+_XCH_BYTES = (2 + 64) * 4
+MAX_SHARED_BYTES = 232448  # an H100 block's opt-in limit (227 KB)
+SM_SHARED_BYTES = 233472  # an H100 SM's shared memory (228 KB), 1 KB of it reserved per block
+MIN_STAGES, STAGES = 2, 3  # ring stages (the kernel takes 2 to 16)
+THREADS = (128, 256, 512)
+MAX_SPLIT = 8  # blocks of one (stream, head) item: a cluster, at most the portable 8
+SPLIT_ROWS = 512  # fewest rows per block that a call of few items is cut to
+
+
+def tile_rows(dtype, threads: int) -> int:
+    """Rows of one ring tile: threads / 2, half that for float32."""
+    return threads // 4 if dtype == torch.float32 else threads // 2
+
+
+def _block_bytes(rows: int, dtype, threads: int, stages: int) -> int:
+    tr = tile_rows(dtype, threads)
+    box = 16 if dtype == torch.bfloat16 and threads == 128 else tr  # rows of one copy (Geo::BOX)
+    slot = tr * 64 * _ELEMENT_BYTES[dtype] + (tr // box * -(-box * 4 // 128) * 128 if dtype == torch.int8 else 0)
+    align = max(tr, 64)
+    rows = -(-rows // align) * align
+    return _BAR_BYTES + stages * slot + threads // 32 * 64 * 4 + _XCH_BYTES + 4 * rows + rows // 8
+
+
+# The most rows one block holds (128 threads, two stages; bf16 and float32,
+# int8 a little more), and so the most rows a call reads.
+MAX_BLOCK_ROWS = (MAX_SHARED_BYTES - _BAR_BYTES - MIN_STAGES * 8192 - 4 * 64 * 4 - _XCH_BYTES) * 8 // 33 // 64 * 64
+MAX_READ_ROWS = MAX_SPLIT * MAX_BLOCK_ROWS
+
+
+def shared_bytes(rows: int, dtype=torch.bfloat16, threads: int = 128, stages: int = STAGES) -> int:
+    """Dynamic shared memory of one block of the kernel that holds `rows`
+    rows of its (stream, head) item. Raises ValueError above
+    MAX_SHARED_BYTES; with 128 threads and 2 stages that caps a block at
+    MAX_BLOCK_ROWS rows for bf16 and float32 caches (a little more for
+    int8), and a call at MAX_READ_ROWS."""
+    n = _block_bytes(rows, dtype, threads, stages)
+    if n > MAX_SHARED_BYTES:
+        raise ValueError(f"{rows} rows per block ({dtype}, {threads} threads, {stages} ring stages) need {n} bytes "
+                         f"of shared memory per block; the H100 allows {MAX_SHARED_BYTES} (read_rows <= "
+                         f"{MAX_READ_ROWS} for bf16, over {MAX_SPLIT} blocks of {MAX_BLOCK_ROWS} rows)")
+    return n
+
+
+@functools.lru_cache(maxsize=None)
+def launch_config(work_items: int, sms: int, read_rows: int, dtype) -> tuple[int, int, int, int, int]:
+    """(threads, stages, split, chunk, shared bytes) of a call with
+    `work_items` (stream, head) items on `sms` SMs, reading read_rows rows.
+
+    An item's rows go to `split` blocks of one cluster, `chunk` rows each
+    (a multiple of the tile; split 1: chunk = read_rows): as many as fill
+    about two blocks per SM, with at least SPLIT_ROWS rows per block, and as
+    many as one block's shared memory needs for a long read, at most
+    MAX_SPLIT. Where few blocks share an SM the arithmetic of their few
+    warps sets the pace, so the blocks widen to fill the SM's 1024 threads
+    that 64 registers a thread allow: 128 threads at 5 or more blocks per
+    SM, 256 at 3-4, 512 at 1-2. Three ring stages where the SM's shared
+    memory holds its blocks with them, else two; narrower blocks, then more
+    split, where one block's shared memory needs it. A cluster of more than
+    two blocks takes blocks of at most 256 threads and two stages: its
+    blocks must be resident at once in one GPC, and smaller blocks find room
+    sooner (B=2 x 16384 on an H100: 72.4 us bf16 and 40.2 int8 in 8-block
+    clusters of 256 threads and two stages, 80.1 and 57.1 at 512 threads
+    and three)."""
+    want = min(MAX_SPLIT, max(1, 2 * sms // work_items), max(1, read_rows // SPLIT_ROWS))
+    for split in range(want, MAX_SPLIT + 1):
+        per_sm = -(-work_items * split // sms)
+        widest = max(THREADS[0], min(THREADS[-1] if split <= 2 else 256, 1 << ((1024 // per_sm).bit_length() - 1)))
+        for threads in (t for t in reversed(THREADS) if t <= widest):
+            align = max(tile_rows(dtype, threads), 64)
+            chunk = -(-(-(-read_rows // split)) // align) * align
+            n = -(-read_rows // chunk)  # blocks that rounding the chunk up leaves
+            chunk = read_rows if n == 1 else chunk
+            resident = min(per_sm, 1024 // threads)
+            for stages in (STAGES, MIN_STAGES) if split <= 2 else (MIN_STAGES,):
+                nbytes = _block_bytes(chunk, dtype, threads, stages)
+                if nbytes <= MAX_SHARED_BYTES and (stages == MIN_STAGES or resident * (nbytes + 1024) <= SM_SHARED_BYTES):
+                    return threads, stages, n, chunk, nbytes
+    shared_bytes(-(-read_rows // MAX_SPLIT), dtype, THREADS[0], MIN_STAGES)  # raises
+    raise AssertionError("unreachable")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def batch_decode_attention_reference(q, k, v, slot_pos, qpos, k_scale=None, v_scale=None, *, read_rows=None):
@@ -79,39 +180,39 @@ def batch_decode_attention(q, k, v, slot_pos, qpos, k_scale=None, v_scale=None, 
     from pocket_tts_tpu_torch.ops import _cuda
 
     _cuda.check_device()
-    if not q.is_cuda:
-        raise ValueError(f"q: expected a CUDA tensor, got device {q.device}")
-    if d != 64 or R % _SPLIT_ROWS or k.dtype not in _KINDS:
-        raise ValueError(f"the CUDA batch attention takes head_dim 64, read_rows a multiple of {_SPLIT_ROWS} and "
-                         f"float32, bf16 or int8 caches; got d={d} R={R} {k.dtype}")
+    if not q.is_cuda or q.dtype not in _Q_KINDS or q.stride(3) != 1:
+        raise ValueError(f"q: expected a CUDA float32 or bf16 tensor with contiguous head rows, got {q.device} "
+                         f"{q.dtype} strides {q.stride()}")
+    if d != 64 or k.dtype not in _KINDS:
+        raise ValueError(f"the CUDA batch attention takes head_dim 64 and float32, bf16 or int8 caches; "
+                         f"got d={d} {k.dtype}")
     _cuda.check_cuda_tensor("k", k, k.dtype, (B, C, H, d))
     _cuda.check_cuda_tensor("v", v, k.dtype, (B, C, H, d))
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("k and v must start 16-byte aligned")
     _cuda.check_cuda_tensor("qpos", qpos, torch.int32, (B,))
     _check_rows("slot_pos", slot_pos, torch.int32, (B, R))
     sc_stride, ks_ptr, vs_ptr = 0, None, None
     if k_scale is not None:
         _check_rows("k_scale", k_scale, torch.float32, (B, R))
         _check_rows("v_scale", v_scale, torch.float32, (B, R))
-        if k_scale.stride(0) != v_scale.stride(0):
-            raise ValueError("k_scale and v_scale must share their row stride")
+        if k_scale.stride(0) != v_scale.stride(0) or k_scale.stride(0) % 4 or k_scale.data_ptr() % 16 \
+                or v_scale.data_ptr() % 16:
+            raise ValueError("k_scale and v_scale must share a row stride that is a multiple of 4 and start "
+                             "16-byte aligned (the row scales are copied as tiles)")
         sc_stride, ks_ptr, vs_ptr = k_scale.stride(0), k_scale.data_ptr(), v_scale.data_ptr()
-    dev = k.device
-    f32 = torch.float32
-    qf = q.reshape(B, H, d).to(f32).contiguous()
-    NS = R // _SPLIT_ROWS
-    scores = torch.empty(B, H, R, dtype=f32, device=dev)
-    part = torch.empty(B, H, NS, 2, dtype=f32, device=dev)
-    part_out = torch.empty(B, H, NS, d, dtype=f32, device=dev)
-    out = torch.empty(B, H, d, dtype=f32, device=dev)
+    threads, stages, split, chunk, smem = launch_config(
+        B * H, _sm_count(k.device.index if k.device.index is not None else 0), R, k.dtype)
+    out = torch.empty(B, H, d, dtype=q.dtype, device=k.device)
     err = _cuda.library("batch_attention").ptt_batch_decode_attention(
-        qf.data_ptr(), k.data_ptr(), v.data_ptr(), _KINDS[k.dtype], slot_pos.data_ptr(), slot_pos.stride(0),
-        qpos.data_ptr(), ks_ptr, vs_ptr, sc_stride, B, C, H, R,
-        scores.data_ptr(), part.data_ptr(), part_out.data_ptr(), out.data_ptr(), _cuda.stream_ptr(),
+        q.data_ptr(), _Q_KINDS[q.dtype], q.stride(0), q.stride(1), k.data_ptr(), v.data_ptr(), _KINDS[k.dtype],
+        slot_pos.data_ptr(), slot_pos.stride(0), qpos.data_ptr(), ks_ptr, vs_ptr, sc_stride, B, C, H, R,
+        threads, stages, split, chunk, smem, out.data_ptr(), _cuda.stream_ptr(),
     )
     batch_decode_attention.launches += 1
     if err:
         raise RuntimeError(f"batch_decode_attention: CUDA error {err}")
-    return out.reshape(B, H, 1, d).to(q.dtype)
+    return out.view(B, H, 1, d)
 
 
 batch_decode_attention.launches = 0

@@ -48,6 +48,7 @@ from pocket_tts_tpu_torch.default_parameters import DEFAULT_SEGMENT_FRAMES, KV_C
 from pocket_tts_tpu_torch.models.generate import initial_carry, run_segment
 from pocket_tts_tpu_torch.models.text import estimate_max_gen_len, prepare_text_prompt, split_into_best_sentences
 from pocket_tts_tpu_torch.models.tts_model import ModelState, TTSModel, _bucket
+from pocket_tts_tpu_torch.ops.batch_attention import MAX_READ_ROWS
 from pocket_tts_tpu_torch.ops.sampling import sample_noise
 from pocket_tts_tpu_torch.utils.transfer import host_to_device
 
@@ -55,6 +56,7 @@ logger = logging.getLogger(__name__)
 
 _EOS_NEVER = 2**30
 _NOISE_SEED = 1234  # the JAX engine's PRNGKey
+_CAPACITY_ALIGN = 32  # fused_backbone_step's cache row multiple (ops/fused_backbone.py)
 
 
 class EngineOverloaded(RuntimeError):
@@ -231,6 +233,9 @@ class TTSEngine:
         self.device = model.device
         self.num_slots = slots
         self.segment_frames = segment_frames
+        # The B=1 kernels take caches of a multiple of 32 rows; the rows
+        # added by rounding up are never valid.
+        capacity = -(-capacity // _CAPACITY_ALIGN) * _CAPACITY_ALIGN
         self.capacity = capacity
         self.text_pad = text_pad
         # Prefill widths (ascending, ending in text_pad): an admission
@@ -241,6 +246,10 @@ class TTSEngine:
         # max_capacity (default 4x, aligned down to the bucket grid).
         raw_max = 4 * capacity if max_capacity is None else max_capacity
         self.max_capacity = max(capacity, (raw_max // KV_CAPACITY_BUCKET) * KV_CAPACITY_BUCKET)
+        if torch.device(self.device).type == "cuda" and slots > 1 and self.max_capacity > MAX_READ_ROWS:
+            # Refused here, not on the tick that first grows past it.
+            raise ValueError(f"max_capacity {self.max_capacity} exceeds the {MAX_READ_ROWS} cache rows that the batch "
+                             "decode attention kernel reads on the card (ops/batch_attention.MAX_READ_ROWS)")
         self._target_capacity = capacity
         self.warmup_frames = warmup_frames
         self.emit_pcm16 = emit_pcm16

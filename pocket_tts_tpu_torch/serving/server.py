@@ -119,6 +119,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="pending-queue bound before 503 (default: 2x slots; 0 = unbounded)")
     parser.add_argument("--param-dtype", default="float32", choices=["float32", "bfloat16", "int8"],
                         help="Weight dtype; int8 decodes with the CUDA kernels (default: float32)")
+    parser.add_argument("--kv-int8", action="store_true",
+                        help="int8 FlowLM KV cache with per-row scales (with --param-dtype int8: the all-int8 mode)")
     parser.add_argument("--device", default="cuda",
                         help="torch device (default: cuda; fails without a GPU unless --device cpu is given)")
     return parser
@@ -129,7 +131,7 @@ def main(argv=None) -> int:
     max_pending = 2 * args.slots if args.max_pending is None else (args.max_pending if args.max_pending > 0 else None)
     logging.basicConfig(level=logging.INFO, format="%(message)s")
     logger.info("loading model...")
-    model = TTSModel.load_model(param_dtype=args.param_dtype, device=args.device)
+    model = TTSModel.load_model(param_dtype=args.param_dtype, device=args.device, kv_int8=args.kv_int8)
     engine = TTSEngine(model, slots=args.slots, segment_frames=args.segment_frames, emit_pcm16=True,
                        max_pending=max_pending)
     engine.serve_forever_in_thread()

@@ -137,6 +137,105 @@ def test_batch_attention_reference_is_sdpa_slots_on_valid_streams():
     torch.testing.assert_close(out, dense.transpose(1, 2), rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_batch_attention_reference_matches_jax_sdpa_slots_at_a_ragged_read(kind):
+    """R=200 lies off the 128-row grid that the Pallas kernel asserts, so the
+    plain version (the kernel's CPU route) is held against the JAX package's
+    XLA path _sdpa_slots over the first 200 rows. Rows past R are poisoned
+    and never read; stream 0 has no valid row and outputs exactly 0 (a rule
+    _sdpa_slots lacks, so that stream is left out of the comparison)."""
+    B, C, H, d, R = 3, 384, 4, 64, 200
+    q, k, v, sp, qpos = _attn_case(B, C, H, d, R)
+    sp[0] = -1
+    valid = jnp.asarray((sp >= 0) & (sp <= qpos[:, None]))[:, None, None, :]
+    if kind == "int8":
+        (jk, jks), (jv, jvs) = jattn.quantize_kv_rows(jnp.asarray(k)), jattn.quantize_kv_rows(jnp.asarray(v))
+        tk, tv = torch.from_numpy(np.array(jk)), torch.from_numpy(np.array(jv))
+        tks, tvs = torch.from_numpy(np.array(jks)), torch.from_numpy(np.array(jvs))
+        tk[:, R:], tv[:, R:], tks[:, R:], tvs[:, R:] = 127, 127, float("nan"), float("nan")
+        jks, jvs, tks, tvs = jks[:, :R], jvs[:, :R], tks[:, :R], tvs[:, :R]
+    else:
+        jk, jv = jnp.asarray(k).astype(jnp.bfloat16), jnp.asarray(v).astype(jnp.bfloat16)
+        tk, tv = torch.from_numpy(k).to(torch.bfloat16), torch.from_numpy(v).to(torch.bfloat16)
+        tk[:, R:], tv[:, R:] = float("nan"), float("nan")
+        jks = jvs = tks = tvs = None
+    ref = jattn._sdpa_slots(jnp.asarray(q), jk[:, :R], jv[:, :R], valid, jks, jvs)  # [B, H, 1, d]
+    launches = batch_decode_attention.launches
+    out = batch_decode_attention(torch.from_numpy(q), tk, tv, torch.from_numpy(sp), torch.from_numpy(qpos),
+                                 tks, tvs, read_rows=R)
+    assert batch_decode_attention.launches == launches
+    assert np.isfinite(out.numpy()).all() and not out[0].any()
+    # The same roundings on both sides (bf16 q and weights, float32 sums): a
+    # bf16 rounding of q or of a weight that sum order flips moves an output
+    # by at most ~1e-3, as in test_causal_attention_batch_decode_matches_jax.
+    np.testing.assert_allclose(out[1:].numpy(), np.asarray(ref[1:], np.float32), rtol=0, atol=2e-3)
+
+
+def test_kernel_shared_memory_helper():
+    """One block's shared memory: 128 bytes of mbarriers, the ring (an 8 KB
+    bf16 tile a stage at 128 threads; 4 KB plus 64 row scales in int8), a
+    [warps][64] float32 reduction buffer, per row of its chunk (padded to
+    the tile and to 64) a float32 score and a validity bit, and 264 bytes of
+    cluster exchange; a ValueError above the H100's 227 KB per block.
+    launch_config widens the blocks where few share an SM, shrinks stages,
+    then width, to fit a long read, and cuts an item's rows across a
+    cluster of up to 8 blocks for a call of few items or a read that one
+    block cannot hold."""
+    ba, bf16, i8 = batch_attention, torch.bfloat16, torch.int8
+    assert ba.shared_bytes(512) == 128 + 3 * 8192 + 1024 + 4 * 512 + 512 // 8 + 264 == 28104
+    assert ba.shared_bytes(16384) == 128 + 3 * 8192 + 1024 + 4 * 16384 + 16384 // 8 + 264 == 93576
+    assert ba.shared_bytes(512, i8) == 128 + 3 * (4096 + 256) + 1024 + 4 * 512 + 512 // 8 + 264 == 16584
+    assert ba.shared_bytes(200) == ba.shared_bytes(256)
+    assert [ba.tile_rows(bf16, 128), ba.tile_rows(i8, 512), ba.tile_rows(torch.float32, 512)] == [64, 256, 128]
+    assert ba.MAX_SHARED_BYTES == 232448 and ba.MAX_BLOCK_ROWS == 52032 and ba.MAX_READ_ROWS == 8 * 52032
+    assert ba.shared_bytes(ba.MAX_BLOCK_ROWS, bf16, 128, 2) <= ba.MAX_SHARED_BYTES
+    with pytest.raises(ValueError, match="shared memory"):
+        ba.shared_bytes(ba.MAX_BLOCK_ROWS + 1, bf16, 128, 2)
+    # (threads, stages, split, chunk, bytes): the batch path's B=64 and the
+    # 32-stream engine, one block per item
+    assert ba.launch_config(64 * 16, 132, 512, bf16) == (128, 3, 1, 512, 28104)
+    assert ba.launch_config(32 * 16, 132, 512, bf16)[:4] == (256, 3, 1, 512)
+    # two 512-thread blocks per SM: three stages of 32 KB tiles would not fit both
+    assert ba.launch_config(16 * 16, 132, 4096, bf16)[:4] == (512, 2, 1, 4096)
+    # few items: cut across a cluster to about two blocks per SM, >= 512 rows
+    # each; clusters of more than two blocks take 256 threads and two stages
+    assert ba.launch_config(8 * 16, 132, 4096, i8) == (512, 3, 2, 2048, 65160)
+    assert ba.launch_config(4 * 16, 132, 512, bf16)[:4] == (512, 3, 1, 512)
+    assert ba.launch_config(2 * 16, 132, 16384, bf16) == (256, 2, 8, 2048, 43656)
+    assert ba.launch_config(2 * 16, 132, 2600, torch.float32)[:4] == (256, 2, 5, 576)
+    # a read one block cannot hold: split until the chunk fits
+    assert ba.launch_config(64 * 16, 132, 60000, bf16) == (128, 2, 2, 30016, 141616)
+    assert ba.launch_config(2 * 16, 132, ba.MAX_READ_ROWS, bf16)[2:4] == (8, ba.MAX_BLOCK_ROWS)
+    with pytest.raises(ValueError, match="shared memory"):
+        ba.launch_config(2 * 16, 132, ba.MAX_READ_ROWS + 1, bf16)
+    for items, rows in ((32, 16384), (64, 512), (128, 4096), (1024, 60000), (32, 40000), (1024, 200)):
+        _, _, split, chunk, _ = ba.launch_config(items, 132, rows, bf16)
+        assert (split - 1) * chunk < rows <= split * chunk and split <= ba.MAX_SPLIT
+
+
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+def test_batch_attention_cpu_tensors_take_the_plain_version(q_dtype):
+    """On CPU tensors the wrapper is the plain version, bit for bit and in
+    q's dtype, at any read limit (a ragged one, and one past what a single
+    block of the kernel holds), and launches nothing."""
+    B, C, H, d = 3, 52200, 2, 64
+    q, k, v, sp, qpos = _attn_case(B, 384, H, d, 200)
+    tq = torch.from_numpy(q).to(q_dtype)
+    tk = torch.zeros(B, C, H, d, dtype=torch.bfloat16)
+    tk[:, :384] = torch.from_numpy(k)
+    tv = torch.zeros_like(tk)
+    tv[:, :384] = torch.from_numpy(v)
+    launches = batch_decode_attention.launches
+    for R in (200, 52160):
+        tsp = torch.full((B, R), -1, dtype=torch.int32)
+        tsp[:, :200] = torch.from_numpy(sp)
+        args = (tq, tk, tv, tsp, torch.from_numpy(qpos))
+        out = batch_decode_attention(*args, read_rows=R)
+        assert out.dtype == q_dtype and out.shape == (B, H, 1, d)
+        torch.testing.assert_close(out, batch_decode_attention_reference(*args, read_rows=R), rtol=0, atol=0)
+    assert batch_decode_attention.launches == launches
+
+
 # ---------------------------------------------------------------- (c) attention module
 
 

@@ -263,6 +263,21 @@ def test_engine_rejects_beyond_max_capacity(model, voice):
 # --------------------------------------------------------------- preemption
 
 
+def test_engine_refuses_a_max_capacity_past_the_card_kernel(model):
+    """On the card every tick at slots > 1 reads the cache through the batch
+    kernel, which takes at most MAX_READ_ROWS rows: a larger max_capacity is
+    refused when the engine is built, not on the tick that first grows past
+    it. A one-slot engine and a CPU engine take it."""
+    from types import SimpleNamespace
+
+    from pocket_tts_tpu_torch.ops.batch_attention import MAX_READ_ROWS
+
+    on_card = SimpleNamespace(device=torch.device("cuda"))
+    with pytest.raises(ValueError, match="max_capacity"):
+        TTSEngine(on_card, slots=2, capacity=64, max_capacity=MAX_READ_ROWS + 4096)
+    assert TTSEngine(model, slots=2, capacity=64, max_capacity=MAX_READ_ROWS + 4096).max_capacity > MAX_READ_ROWS
+
+
 def test_engine_preemption_exact_audio_at_temp_zero(model, voice):
     """A stream parked mid-decode and resumed later produces exactly the
     audio of an unpreempted run (park/resume lose no KV, Mimi or carry

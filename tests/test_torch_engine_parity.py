@@ -106,6 +106,20 @@ def test_engine_matches_jax_engine(jax_f32_params, param_dtype, kv_int8):
     assert t_engine._written == j_engine._written and t_engine._pos == j_engine._pos
 
 
+@pytest.mark.parametrize("slots", [1, 2])
+def test_engine_off_grid_capacity_matches_jax_engine(jax_f32_params, slots):
+    """capacity=200 lies off the B=1 kernels' 32-row grid: the port rounds it
+    up to 224 rows, which are never valid, while the JAX engine serves 200
+    rows through XLA. The same frames per request, audio within float32 sum
+    order, one slot (the B=1 path) and two (the batch path)."""
+    (jm, jv), (tm, tv) = _pair(jax_f32_params, "float32", False)
+    kw = dict(slots=slots, segment_frames=4, capacity=200, text_pad=32, preempt_min_lead_s=1e9)
+    j_engine, ref = _serve(JTTSEngine, jm, jv, TEXTS[:2], 1, **kw)
+    t_engine, got = _serve(TTSEngine, tm, tv, TEXTS[:2], 1, **kw)
+    assert (t_engine.capacity, j_engine.capacity) == (224, 200) and t_engine.growths == 0
+    _assert_close(got, ref, exact=True)
+
+
 def test_engine_preemption_matches_jax_engine(jax_f32_params):
     """test_engine_preemption_exact_audio_at_temp_zero's setup on both
     sides: one slot, every running stream preemptable, no parked stream

@@ -52,3 +52,32 @@ def test_cli_parser_keeps_the_reference_flags():
     ref = {a.dest: a.default for a in jax_parser()._actions}
     port = {a.dest: a.default for a in build_parser()._actions}
     assert {k: port[k] for k in ref} == ref
+
+
+def _c_entry_points():
+    """(name, C parameter types) of every extern "C" function in csrc/*.cu."""
+    import re
+
+    found = {}
+    for src in sorted((ROOT / "pocket_tts_tpu_torch" / "csrc").glob("*.cu")):
+        text = re.sub(r"//[^\n]*", "", src.read_text())
+        for name, params in re.findall(r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)', text):
+            found[name] = [" ".join(p.split()[:-1]) for p in params.split(",")]
+    return found
+
+
+@pytest.mark.parametrize("name", ["ptt_fused_backbone_step", "ptt_fused_segment_decode", "ptt_batch_decode_attention",
+                                  "ptt_row_write", "ptt_head_slice_weighted_sum"])
+def test_ctypes_signature_matches_the_c_entry_point(name):
+    """Each kernel's ctypes argtypes have one entry per parameter of its C
+    entry point, a pointer for a pointer and an int for an int: a missing
+    or extra argument would pass garbage to the card."""
+    import ctypes
+
+    from pocket_tts_tpu_torch.ops import _cuda
+
+    params = _c_entry_points()[name]
+    argtypes, restype = _cuda._SIGNATURES[name]
+    assert restype is ctypes.c_int
+    assert [ctypes.c_void_p if "*" in p else ctypes.c_int for p in params] == argtypes, params
+    assert all("*" in p or p.split()[-1] == "int" for p in params), params

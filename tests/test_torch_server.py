@@ -39,13 +39,13 @@ def _one_torch_thread():
     torch.set_num_threads(threads)
 
 
-def _tiny_model(seed: int) -> TTSModel:
+def _tiny_model(seed: int, kv_int8: bool = False) -> TTSModel:
     cfg = Config(**TINY)
     flow_lm = FlowLMModel(cfg.flow_lm, latent_dim=cfg.mimi.quantizer.dimension, speaker_dim=cfg.mimi.seanet.dimension)
     gen = torch.Generator().manual_seed(seed)
     params = {"flow_lm": flow_lm.init_params(gen), "mimi": MimiModel(cfg.mimi).init_params(gen)}
     model = TTSModel.from_params(cfg, params, FallbackWordTokenizer(4000), "float32", device="cpu", temp=0.7,
-                                 lsd_decode_steps=1, noise_clamp=None, eos_threshold=1e9)
+                                 lsd_decode_steps=1, noise_clamp=None, eos_threshold=1e9, kv_int8=kv_int8)
     model.random_init = True  # offline: the synthetic-voice fallback
     return model
 
@@ -172,3 +172,37 @@ def test_server_cli_keeps_the_reference_flags():
     assert (args.host, args.port, args.slots, args.segment_frames, args.max_pending) == (
         "127.0.0.1", 8080, 8, 4, None)
     assert args.device == "cuda" and args.param_dtype == "float32"
+
+
+def test_server_kv_int8_flag_builds_an_int8_kv_model(monkeypatch):
+    """--kv-int8, the counterpart of the JAX server's POCKET_TTS_KV_INT8,
+    loads the model with kv_int8=True, so the engine's caches are int8 rows
+    with per-row scales; without it the model keeps kv_int8=False."""
+    assert not server_module.build_parser().parse_args([]).kv_int8
+    loaded, engines = [], []
+
+    def load_model(**kw):
+        loaded.append(kw)
+        return _tiny_model(5, kv_int8=kw["kv_int8"])
+
+    class Engine(TTSEngine):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            engines.append(self)
+
+    class NoServer:
+        def __init__(self, address, handler):
+            self.address = address
+
+        def serve_forever(self):
+            pass
+
+    monkeypatch.setattr(TTSModel, "load_model", staticmethod(load_model))
+    monkeypatch.setattr(server_module, "TTSEngine", Engine)
+    monkeypatch.setattr(server_module, "ThreadingHTTPServer", NoServer)
+    assert server_module.main(["--kv-int8", "--device", "cpu", "--slots", "2", "--param-dtype", "int8"]) == 0
+    engines[0].stop()
+    assert loaded == [{"param_dtype": "int8", "device": "cpu", "kv_int8": True}]
+    assert engines[0].model.kv_int8
+    layer = engines[0].flow_state["transformer"]["layers"][0]
+    assert layer["k"].dtype == torch.int8 and layer["k_scale"].dtype == torch.float32

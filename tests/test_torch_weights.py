@@ -9,8 +9,10 @@ import numpy as np
 import pytest
 import torch
 
+from pocket_tts_tpu.config.schema import Config as JConfig
 from pocket_tts_tpu.models.flow_lm import FlowLMModel as JFlowLM
 from pocket_tts_tpu.models.mimi import MimiModel as JMimi
+from pocket_tts_tpu.models.tts_model import TTSModel as JTTSModel
 from pocket_tts_tpu.models.weights import cast_serving_dtype as jax_cast
 from pocket_tts_tpu.models.weights import convtr_weight_to_torch
 from pocket_tts_tpu.models.weights import quantize_int8 as jax_quantize_int8
@@ -18,6 +20,7 @@ from pocket_tts_tpu.models.weights import save_checkpoint
 from pocket_tts_tpu_torch.config.schema import Config as TConfig
 from pocket_tts_tpu_torch.models.flow_lm import FlowLMModel
 from pocket_tts_tpu_torch.models.mimi import MimiModel
+from pocket_tts_tpu_torch.models.tts_model import _load_weights
 from pocket_tts_tpu_torch.models.weights import (
     cast_serving_dtype,
     load_state_dict,
@@ -137,3 +140,14 @@ def test_load_state_dict_renames_and_skips():
         port["transformer"]["layers"][0]["self_attn"]["in_proj"]["weight"].numpy(),
         np.arange(12, dtype=np.float32).reshape(3, 2, 2),
     )
+
+
+def test_flow_lm_weights_without_mimi_weights_names_the_missing_key(tmp_path):
+    """flow_lm.weights_path set without mimi.weights_path raises the JAX
+    package's ValueError, naming the missing key, before any file opens."""
+    raw = {**TINY, "flow_lm": {**TINY["flow_lm"], "weights_path": str(tmp_path / "flow_lm.safetensors")}}
+    with pytest.raises(ValueError) as jax_error:
+        JTTSModel._load_weights(None, JConfig(**raw), None, True)
+    with pytest.raises(ValueError, match="mimi.weights_path") as port_error:
+        _load_weights({}, TConfig(**raw), allow_random_init=True)
+    assert str(port_error.value) == str(jax_error.value)
