@@ -38,11 +38,12 @@ Phases (any failure exits non-zero and prints no result line):
      times per decoded frame (every batch decode attention went through the
      kernel); copy_state leaves the voices bit-identical;
   7. batch timings beside the card's name and power limit: the batch kernel's
-     device time per call (torch.profiler kernel times; one kernel per call),
+     device time per call (torch.profiler kernel times, the mean over the
+     records received; one kernel per call),
      its device wall per call in a replayed CUDA graph of 50 calls and its
      wall per call between CUDA events around 50 calls from the host (the
      wrapper's host time included), vs its plain version and (bf16)
-     scaled_dot_product_attention at B=64, R=512 with every row valid,
+     scaled_dot_product_attention (graph walls) at B=64, R=512 with every row valid,
      against the K+V read bound, and at the server engine's B=8 x 4096, the
      4-voice batch's B=4 x 512 and the engine's largest read, B=2 x 16384
      (bf16 and int8); the B=64 device ms per decode step
@@ -56,7 +57,8 @@ Phases (any failure exits non-zero and prints no result line):
      (65536, 1024); the probe entry point run in this process (its launches
      counted) and as `python -m pocket_tts_tpu_torch.probes` (exit 0); both
      kernels timed at (65536, 1024) by torch.profiler kernel time beside
-     their bounds, their plain versions and one PyTorch call each (the sum
+     their bounds, their plain versions and one PyTorch call each (graph
+     walls; the sum
      over inputs and outputs rotated past the L2, so both reach HBM);
   9. the serving engine at b6369a24 width, int8 weights and int8 KV:
      TTSEngine(slots=64, segment_frames=8, capacity=384) serves 96 requests
@@ -80,9 +82,34 @@ Phases (any failure exits non-zero and prints no result line):
      32-row grid; it rounds up to 224) serves two short requests, every step
      through the batch kernel at a ragged 224 rows; then each kernel against
      its plain version at every capacity the engines of phases 9-11 decoded
-     at that phases 3-5 did not compare.
+     at that phases 3-5 did not compare;
+ 12. the read probes: stream_read for int8, bf16 and float32 at (256, 1024)
+     and (300, 1024) (a partial last block) and at (65536, 1024), over
+     several grids, against its plain version (integer data: exact; normal
+     data: TOL_READ_SUM of the largest output); kv_read_sum at B=64, C=512
+     and B=3, C=200 (one block, 88 rows unread) within TOL_KV_SUM; the
+     bw_probe sweep (256 MiB, every dtype, block size and swept grid) and
+     the attn_micro variants (B=64, C=512) run in this process, launches
+     counted (graph replays included), and both entry points as `python -m`
+     at reduced sizes (exit 0); then stream_read against its plain version
+     on the sweep's own 256 MiB arrays at every block size and grid the
+     sweep ran, and kv_read_sum on attn_micro's own inputs at every grid
+     timed; stream_read at 256 MiB per dtype at its best block size and grid
+     and kv_read_sum at B=64, C=512 by torch.profiler kernel time beside
+     their bounds, plain versions and one PyTorch call each; kernel and
+     kernel_i8 as fractions of the measured pallas_read floor and
+     stream_read ceilings; every rate measured must stay at or below 105%
+     of 3.35 TB/s;
+ 13. voice cloning at b6369a24 width in int8 (a model built by from_params
+     from seeded random weights with a random speaker projection): a seeded
+     10 s 16 kHz WAV under build/ is cloned (prompt length ceil(frames),
+     state on the card), generate_audio decodes from the cloned state
+     (finite audio of whole 1920-sample frames, every frame through a B=1
+     kernel), then a 35 s WAV with truncate=True (state <= 380 frames) and
+     a [T] array; the clone latency split into read + convert, encode,
+     projection and prefill (CUDA events, medians of warm runs).
 
-The second-to-last line is the kernels' JSON record, the last line
+The total wall time is printed before the last two lines. The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.
 """
 
@@ -144,6 +171,16 @@ TIMED_SHAPES = ((8, 4096), (4, 512), (2, 16384))
 # head_slice_weighted_sum: float32 sums of 16 bf16 x small-integer products,
 # each exact; another summation order moves only the last bits.
 TOL_PROBE_SUM = 1e-5  # relative to the largest |output|
+# stream_read and kv_read_sum add their blocks' partial sums with float
+# atomics, in the order the blocks finish; the plain versions sum in the TPU
+# kernels' block order. Integer-valued data sums exactly in any order; other
+# data differs by float32 rounding: at most 1e-5 (stream_read: up to 1024
+# tile partials, the sweep's 256 MiB arrays in 256 KiB blocks) and 1e-4
+# (kv_read_sum: 32768 rows of column sums in another grouping) of the
+# largest output.
+TOL_READ_SUM = 1e-5
+TOL_KV_SUM = 1e-4
+READ_RATE_LIMIT = 1.05 * HBM_BYTES_PER_S  # a faster read than this is a fault of the probe
 SERVER_TEXTS = [" ".join(BATCH_WORDS[: 6 + (i * 7) % 10]).capitalize() + "." for i in range(48)]
 
 
@@ -176,6 +213,7 @@ def card_line() -> str:
 
 
 def main() -> None:
+    t_start = time.monotonic()
     if not (ROOT / "pocket_tts_tpu_torch").is_dir():
         fail("pocket_tts_tpu_torch/ not found next to chip_smoke.py; run from a checkout of the repository")
     sys.path.insert(0, str(ROOT))
@@ -198,7 +236,7 @@ def main() -> None:
     from pocket_tts_tpu_torch.ops.fused_segment import fused_segment_decode, fused_segment_decode_reference
 
     # ---------------------------------------------------------------- phase 2
-    sources = ("fused_backbone", "fused_segment", "batch_attention", "probes")
+    sources = ("fused_backbone", "fused_segment", "batch_attention", "probes", "read_probes")
     t0 = time.monotonic()
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, all started together
         list(pool.map(_cuda.library, sources))
@@ -452,6 +490,19 @@ def main() -> None:
           f"{sorted(served['step_capacities'])}, server (8 slots) {sorted(server_caps)}, 2 slots "
           f"{sorted(off_grid_caps)}; each compared above", flush=True)
 
+    # ---------------------------------------------------------------- phase 12
+    read = read_probes_phase(torch, dev, card, batch_decode_attention)
+    for name, (err, ms, plain_ms, bnd, lib_ms) in read["kernels"].items():
+        errs[name], timings[name], bounds[name], library[name] = err, (ms, plain_ms), bnd, lib_ms
+    print(f"batch_decode_attention bf16 B=64 R=512 (phase 7) {timings['batch_decode_attention'][0] * 1e3:.1f} us "
+          f"against kv_read_sum's {timings['kv_read_sum'][0] * 1e3:.1f} us for the same K+V bytes: "
+          f"{timings['kv_read_sum'][0] / timings['batch_decode_attention'][0]:.2f} x the read floor's speed [{card}]",
+          flush=True)
+
+    # ---------------------------------------------------------------- phase 13
+    clone_phase(torch, model, card, fused_backbone_step, fused_segment_decode, dev)
+    print(f"chip_smoke.py wall time: {time.monotonic() - t_start:.1f} s [{card}]", flush=True)
+
     def entry(name, source, replaces, n_launches):
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -462,7 +513,7 @@ def main() -> None:
 
     # Launches: each kernel's count over the main-path runs that reach it,
     # each counted from 0 just before its run (B=1 path, batch path, engine,
-    # probe entry point).
+    # probe entry point, the bw_probe and attn_micro entry points).
     kernels = [
         entry("fused_backbone_step", "pocket_tts_tpu_torch/csrc/fused_backbone.cu",
               "pocket_tts_tpu/ops/fused_backbone.py:1080",
@@ -476,6 +527,10 @@ def main() -> None:
               probe["launches"]["row_write"]),
         entry("head_slice_weighted_sum", "pocket_tts_tpu_torch/csrc/probes.cu", "scripts/mosaic_probe.py:87",
               probe["launches"]["head_slice_weighted_sum"]),
+        entry("stream_read", "pocket_tts_tpu_torch/csrc/read_probes.cu", "benchmarks/bw_probe.py:31",
+              read["launches"]["stream_read"]),
+        entry("kv_read_sum", "pocket_tts_tpu_torch/csrc/read_probes.cu", "benchmarks/attn_micro.py:201",
+              read["launches"]["kv_read_sum"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -619,55 +674,47 @@ def batch_path(torch, model, card, batch_kernel, step_kernel, segment_kernel) ->
     return {"launches": total, "model_kv_int8": model8}
 
 
-def kernel_profile(torch, fn, reps: int) -> tuple[float, float]:
-    """Device time per call of fn, the sum of its kernels' times from
-    torch.profiler (CUPTI), so the host's enqueue rate does not enter; and
-    the kernels it launches per call."""
+def kernel_profile(torch, fn, reps: int, name: str) -> tuple[float, int]:
+    """Device time per call of fn, which launches one kernel whose name
+    contains `name` (a memset may go with it): the mean over the records of
+    that kernel which torch.profiler (CUPTI) delivered for `reps` calls, so
+    the host's enqueue rate does not enter; and the records received. CUPTI
+    has delivered records for only some of a window's calls on an H100, so
+    the mean is over the records, not over the calls. Fails if the window
+    holds another kernel, or more records than calls."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    # CUPTI now and then delivers no kernel record for a short window; such a
-    # window is measured again, at most three times in all.
-    for _ in range(3):
+    for _ in range(3):  # a window with no record at all is measured again, at most three times
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-        total = sum(e.self_device_time_total for e in kernels)
-        if total > 0:
-            return total / reps / 1e3, sum(e.count for e in kernels) / reps
-    fail("torch.profiler recorded no kernel time in three windows")
-
-
-def kernel_ms(torch, fn, reps: int) -> float:
-    return kernel_profile(torch, fn, reps)[0]
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and "Memset" not in e.key]
+        mine = [e for e in events if name in e.key]
+        records = sum(e.count for e in mine)
+        others = sorted({e.key for e in events} - {e.key for e in mine})
+        if others or records > reps:
+            fail(f"{name}: {records} records for {reps} calls, other kernels {others}; expected one kernel per call")
+        if records:
+            return sum(e.self_device_time_total for e in mine) / records / 1e3, records
+    fail(f"torch.profiler recorded no {name} kernel in three windows of {reps} calls")
 
 
 def graph_ms(torch, fn, calls: int = 50, replays: int = 10) -> float:
-    """Device wall per call with the gaps between launches: CUDA events
-    around replays of a CUDA graph of `calls` captured calls of fn (a
-    measurement only; the port never runs a graph)."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    """Device wall per call with the gaps between launches: the best of
+    `replays` CUDA-event timings of a replayed CUDA graph of `calls`
+    captured calls of fn (utils/timing.best_seconds; a measurement only,
+    the port never runs a graph)."""
+    from pocket_tts_tpu_torch.utils.timing import best_seconds
+
+    def run():
         for _ in range(calls):
             fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (calls * replays)
+
+    return best_seconds(run, replays, torch.device("cuda")) / calls * 1e3
 
 
 def event_ms(torch, fn, calls: int = 50) -> float:
@@ -687,12 +734,13 @@ def event_ms(torch, fn, calls: int = 50) -> float:
 
 def attention_timings(torch, dev, kernel, plain=None, B=64, C=512) -> dict:
     """The batch kernel at B streams over C rows, every row valid, bf16 and
-    int8 caches: device ms per call (torch.profiler kernel time), kernels
-    per call, device wall per call in a CUDA graph of 50 calls, wall per
-    call between CUDA events around 50 calls from the host, the bound (the
-    K+V read); with `plain`, the plain version's kernel time, and for bf16
-    scaled_dot_product_attention with the boolean mask (kernel time and
-    graph wall). -> {kind: {...}}."""
+    int8 caches: device ms per call (torch.profiler kernel time; one kernel
+    per call, or kernel_profile fails) and the records it is the mean of,
+    device wall per call in a CUDA graph of 50 calls, wall per call between
+    CUDA events around 50 calls from the host, the bound (the K+V read);
+    with `plain`, the plain version's graph wall, and for bf16
+    scaled_dot_product_attention with the boolean mask (graph wall).
+    -> {kind: {...}}."""
     import torch.nn.functional as F
 
     from pocket_tts_tpu_torch.ops.attention import quantize_kv_rows
@@ -707,23 +755,23 @@ def attention_timings(torch, dev, kernel, plain=None, B=64, C=512) -> dict:
     result = {}
     for kind, args in (("bf16", (q, k, v, sp, qpos, None, None)), ("int8", (q, k8, v8, sp, qpos, ks, vs))):
         nbytes = 2 * k.numel() * args[1].element_size() + small + (2 * ks.numel() * 4 if kind == "int8" else 0)
-        ms, per_call = kernel_profile(torch, lambda: kernel(*args, read_rows=C), 50)
-        result[kind] = {"ms": ms, "kernels_per_call": per_call, "bound_ms": bound(nbytes, ops),
+        ms, records = kernel_profile(torch, lambda: kernel(*args, read_rows=C), 50, "decode_attention_kernel")
+        result[kind] = {"ms": ms, "records": records, "bound_ms": bound(nbytes, ops),
                         "graph_ms": graph_ms(torch, lambda: kernel(*args, read_rows=C)),
                         "event_ms": event_ms(torch, lambda: kernel(*args, read_rows=C))}
         if plain is not None:
-            result[kind]["plain_ms"] = kernel_ms(torch, lambda: plain(*args, read_rows=C), 10)
+            result[kind]["plain_ms"] = graph_ms(torch, lambda: plain(*args, read_rows=C), calls=10, replays=3)
     if plain is not None:
         qb, kt, vt = q.to(torch.bfloat16), k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
         mask = ((sp >= 0) & (sp <= qpos[:, None]))[:, None, None, :]
         sdpa = lambda: F.scaled_dot_product_attention(qb, kt, vt, attn_mask=mask)  # noqa: E731
-        result["bf16"]["sdpa_ms"], result["bf16"]["sdpa_graph_ms"] = kernel_ms(torch, sdpa, 50), graph_ms(torch, sdpa)
+        result["bf16"]["sdpa_ms"] = graph_ms(torch, sdpa)
     return result
 
 
 def time_batch_attention(torch, dev, card, kernel, plain):
     """Phase 7's kernel timings at B=64, R=512 (and at TIMED_SHAPES), every
-    row valid: torch.profiler kernel time, kernels per call (must be 1), the
+    row valid: torch.profiler kernel time (one kernel per call), the
     device wall per call of a CUDA graph of 50 calls, the wall per call
     between CUDA events around 50 host calls, the plain version and (bf16)
     scaled_dot_product_attention; the bound is the K+V read. Returns the
@@ -733,17 +781,14 @@ def time_batch_attention(torch, dev, card, kernel, plain):
     for B, C in TIMED_SHAPES:
         rows += [(f"B={B} R={C}", kind, t) for kind, t in attention_timings(torch, dev, kernel, B=B, C=C).items()]
     for shape, kind, t in rows:
-        if t["kernels_per_call"] != 1:
-            fail(f"batch_decode_attention {kind} {shape}: {t['kernels_per_call']} kernels per call, not 1")
         b_ms = t["bound_ms"][0]
         extra = ""
         if "plain_ms" in t:
-            extra = f" vs {t['plain_ms'] * 1e3:.1f} us (plain PyTorch)"
+            extra = f" vs {t['plain_ms'] * 1e3:.1f} us (plain PyTorch, graph wall)"
         if "sdpa_ms" in t:
-            extra += (f", scaled_dot_product_attention {t['sdpa_ms'] * 1e3:.1f} us ({t['sdpa_graph_ms'] * 1e3:.1f} us "
-                      "in a graph)")
+            extra += f", scaled_dot_product_attention {t['sdpa_ms'] * 1e3:.1f} us (graph wall)"
         print(f"batch_decode_attention {kind} {shape} all rows valid: {t['ms'] * 1e3:.1f} us/call of device time "
-              f"(CUDA kernel, {t['kernels_per_call']:g} kernel per call, {b_ms / t['ms']:.0%} of the bound; "
+              f"(CUDA kernel, one per call, mean of {t['records']} records of 50 calls, {b_ms / t['ms']:.0%} of the bound; "
               f"{t['graph_ms'] * 1e3:.1f} us/call of device wall in a CUDA graph of 50 calls; "
               f"{t['event_ms'] * 1e3:.1f} us/call between CUDA events around 50 host calls){extra}; bound "
               f"{b_ms * 1e3:.1f} us at 3.35 TB/s; torch.profiler kernel times [{card}]", flush=True)
@@ -859,7 +904,8 @@ def probes_phase(torch, dev, card) -> dict:
     if proc.returncode != 0:
         fail(f"python -m pocket_tts_tpu_torch.probes exited {proc.returncode}: {proc.stderr[-2000:]}")
 
-    # Timings at (65536, 1024): kernel time by torch.profiler. Successive
+    # Timings at (65536, 1024): kernel time by torch.profiler, the plain
+    # versions and the library calls by graph walls. Successive
     # calls of the sum read four inputs in turn (512 MiB together) and write
     # nine outputs in turn (the last eight are held: 144 MiB), so no call
     # finds its input, or the lines of its output, left in the 50 MB L2 by
@@ -875,29 +921,302 @@ def probes_phase(torch, dev, card) -> dict:
     xs = itertools.cycle([torch.randn(C, E, generator=g).to(torch.bfloat16).to(dev) for _ in range(4)])
     weights = torch.arange(1, H + 1, dtype=torch.float32, device=dev).view(1, H, 1)
     held = collections.deque(maxlen=8)
-    p1 = (kernel_ms(torch, lambda: row_write(cache, row, index), 48),
-          kernel_ms(torch, lambda: row_write_reference(cache, row, index), 48),
-          kernel_ms(torch, lambda: cache.index_copy_(0, index_long, row[None]), 48))
-    p2 = (kernel_ms(torch, lambda: held.append(head_slice_weighted_sum(next(xs), H, W)), 48),
-          kernel_ms(torch, lambda: held.append(head_slice_weighted_sum_reference(next(xs), H, W)), 20),
-          kernel_ms(torch, lambda: held.append((next(xs).view(C, H, W).float() * weights).sum(1)), 20))
+    p1 = (*kernel_profile(torch, lambda: row_write(cache, row, index), 48, "row_write_kernel"),
+          graph_ms(torch, lambda: row_write_reference(cache, row, index), calls=48),
+          graph_ms(torch, lambda: cache.index_copy_(0, index_long, row[None]), calls=48))
+    p2 = (*kernel_profile(torch, lambda: held.append(head_slice_weighted_sum(next(xs), H, W)), 48,
+                          "head_slice_weighted_sum_kernel"),
+          graph_ms(torch, lambda: held.append(head_slice_weighted_sum_reference(next(xs), H, W)), calls=20, replays=3),
+          graph_ms(torch, lambda: held.append((next(xs).view(C, H, W).float() * weights).sum(1)), calls=20,
+                   replays=3))
     held.clear()
     x = next(xs)
     b1 = bound(2 * E * 2 + 4, 0)  # one row read and written, the index read
     b2 = bound(x.numel() * 2, 2 * x.numel())  # x read (the output stays in the L2); a multiply-add per element
-    for name, (ms, plain_ms, lib_ms), (b_ms, by), lib in (
+    for name, (ms, records, plain_ms, lib_ms), (b_ms, by), lib in (
         ("row_write", p1, b1, "index_copy_"),
         ("head_slice_weighted_sum", p2, b2, "(x.view(C,16,64).float() * w).sum(1)"),
     ):
-        print(f"{name} ({C}, {E}): {ms * 1e3:.2f} us/call of device time (CUDA kernel, bound {b_ms * 1e3:.3f} us by "
+        print(f"{name} ({C}, {E}): {ms * 1e3:.2f} us/call of device time (CUDA kernel, torch.profiler, mean of "
+              f"{records} records of 48 calls; bound {b_ms * 1e3:.3f} us by "
               f"{by}{'; a 2 KiB row write is bound by its launch, by nature' if name == 'row_write' else ''}) vs "
-              f"{plain_ms * 1e3:.2f} us (plain PyTorch) and {lib_ms * 1e3:.2f} us ({lib}); torch.profiler kernel "
-              f"times [{card}]", flush=True)
+              f"{plain_ms * 1e3:.2f} us (plain PyTorch) and {lib_ms * 1e3:.2f} us ({lib}), graph walls [{card}]",
+              flush=True)
     return {
-        "kernels": {"row_write": (errs["row_write"], *p1[:2], b1, p1[2]),
-                    "head_slice_weighted_sum": (errs["head_slice_weighted_sum"], *p2[:2], b2, p2[2])},
+        "kernels": {"row_write": (errs["row_write"], p1[0], p1[2], b1, p1[3]),
+                    "head_slice_weighted_sum": (errs["head_slice_weighted_sum"], p2[0], p2[2], b2, p2[3])},
         "launches": launches,
     }
+
+
+def read_probes_phase(torch, dev, card, batch_kernel) -> dict:
+    """Phase 12: stream_read and kv_read_sum against their plain versions,
+    the bw_probe and attn_micro entry points in this process (launches
+    counted) and as subprocesses, and timings at the probes' shapes.
+    Returns {"kernels": {name: (max_abs_err, ms, plain_ms, (bound_ms,
+    bound_by), library_ms)}, "launches": {name: n}}."""
+    from pocket_tts_tpu_torch import attn_micro, bw_probe
+    from pocket_tts_tpu_torch.ops.read_probes import (
+        kv_read_sum,
+        kv_read_sum_reference,
+        sm_count,
+        stream_read,
+        stream_read_reference,
+    )
+
+    g = torch.Generator().manual_seed(12)
+    sms = sm_count(dev)
+    errs = {"stream_read": 0.0, "kv_read_sum": 0.0}
+
+    def check(name, got, ref, tol, tag, show=True):
+        torch.cuda.synchronize()
+        err, scale = max_err(got, ref), max(float(ref.abs().max()), 1e-30)
+        if show:
+            print(f"{name} {tag}: max|err| {err:.3g}, relative {err / scale:.3g} (tol {tol} of the largest output)",
+                  flush=True)
+        if not (err <= tol * scale and bool(torch.isfinite(got).all())):
+            fail(f"{name} {tag}: max|err| {err:.4g} against the plain version (largest output {scale:.4g})")
+        errs[name] = max(errs[name], err)
+        return err
+
+    tok = torch.randn(8, 128, generator=g).to(dev)
+    for dtype, tile in ((torch.int8, 32), (torch.bfloat16, 16), (torch.float32, 8)):
+        for rows, blk in ((256, tile), (300, 64), (65536, 256), (65536, 2048)):
+            if dtype == torch.int8:
+                x = torch.randint(-128, 128, (rows, 1024), generator=g, dtype=torch.int8)
+            else:
+                x = torch.randint(-64, 65, (rows, 1024), generator=g).to(dtype)
+            x = x.to(dev)
+            ref = stream_read_reference(tok, x, blk)
+            for grid in ((None, 1, 3 * sms) if rows < 1024 else (None, sms + 7)):  # one block alone reads slowly
+                check("stream_read", stream_read(tok, x, blk, grid=grid), ref, TOL_READ_SUM,
+                      f"{str(dtype).split('.')[-1]} ({rows}, 1024) blk {blk} grid {grid or 'default'} integers")
+            if dtype != torch.int8:
+                x = (torch.randn(rows, 1024, generator=g) * 4).to(dtype).to(dev)
+                check("stream_read", stream_read(tok, x, blk), stream_read_reference(tok, x, blk), TOL_READ_SUM,
+                      f"{str(dtype).split('.')[-1]} ({rows}, 1024) blk {blk} normal")
+    for B, C in ((64, 512), (3, 200)):
+        k = torch.randn(B * C, 1024, generator=g).to(torch.bfloat16).to(dev)
+        v = torch.randn(B * C, 1024, generator=g).to(torch.bfloat16).to(dev)
+        if C == 200:  # rows past the last whole 512-row block must not be read
+            k[512:], v[512:] = float("nan"), float("nan")
+        ref = kv_read_sum_reference(tok, k, v)
+        for grid in (None, 7):
+            check("kv_read_sum", kv_read_sum(tok, k, v, grid=grid), ref, TOL_KV_SUM,
+                  f"B={B} C={C} ({B * C} rows) grid {grid or 'default'}")
+
+    # The entry points in this process: their launches are the main path's.
+    rates = []
+    stream_read.launches = kv_read_sum.launches = 0
+    sweep = bw_probe.sweep(256, 16, 5, dev, print_fn=lambda line: print(f"bw_probe: {line} [{card}]", flush=True))
+    n_stream = stream_read.launches
+    for res in sweep.values():
+        rates += [gbs * 1e9 for _, gbs in res["blocks"].values()] + [res["best"][3] * 1e9]
+    batch_launches = batch_kernel.launches
+    micro = attn_micro.run(64, 512, 64, 5, dev, print_fn=lambda line: print(f"attn_micro: {line} [{card}]", flush=True))
+    torch.cuda.synchronize()
+    launches = {"stream_read": n_stream, "kv_read_sum": kv_read_sum.launches}
+    print(f"entry points in this process: launches {launches}, batch_decode_attention "
+          f"{batch_kernel.launches - batch_launches}", flush=True)
+    if min(launches.values()) <= 0 or batch_kernel.launches == batch_launches:
+        fail(f"an entry point did not launch its kernel: {launches}")
+    for module, args in (("bw_probe", ["--mb", "64", "--iters", "4", "--repeats", "2"]),
+                         ("attn_micro", ["--iters", "8", "--repeats", "2"])):
+        proc = subprocess.run([sys.executable, "-m", f"pocket_tts_tpu_torch.{module}", *args], cwd=ROOT,
+                              capture_output=True, text=True, timeout=600)
+        print(f"python -m pocket_tts_tpu_torch.{module} {' '.join(args)}: exit {proc.returncode}, "
+              f"{len(proc.stdout.splitlines())} lines", flush=True)
+        if proc.returncode != 0:
+            fail(f"python -m pocket_tts_tpu_torch.{module} exited {proc.returncode}: {proc.stderr[-2000:]}")
+
+    # On the sweep's own inputs, each dtype's 256 MiB array as bw_probe made
+    # it (random_array, seed 0): the kernel against its plain version at
+    # every block size the sweep read and at every grid it ran (the default
+    # one full wave, and 1, 2, 4 and 8 blocks per SM), then its timings at the
+    # sweep's best block and grid: device time by torch.profiler (the mean
+    # over the records received) and the device wall per call of a replayed
+    # CUDA graph of 50 calls (the output's memset and the gaps between
+    # launches included). The plain versions and the library calls are timed
+    # by graph walls.
+    grids = (None, *(waves * sms for waves in bw_probe.GRID_WAVES))
+    kernels = {}
+    ceilings = {}
+    for name, res in sweep.items():
+        dtype = {"int8": torch.int8, "bfloat16": torch.bfloat16, "float32": torch.float32}[name]
+        blk_kib, blk_rows, grid, _ = res["best"]
+        x = bw_probe.random_array(res["rows_total"], dtype, dev)
+        for kib, (rows, _) in res["blocks"].items():
+            ref = stream_read_reference(tok, x, rows)
+            err = max(check("stream_read", stream_read(tok, x, rows, grid=gr), ref, TOL_READ_SUM,
+                            f"{name} 256 MiB blk {kib} KiB grid {gr or 'default'}", show=False) for gr in grids)
+            print(f"stream_read {name} 256 MiB (the sweep's array) blk {kib} KiB ({rows} rows), grids "
+                  f"{', '.join(str(gr or 'default') for gr in grids)}: max|err| {err:.3g}, relative "
+                  f"{err / float(ref.abs().max()):.3g} (tol {TOL_READ_SUM} of the largest output)", flush=True)
+        ms, records = kernel_profile(torch, lambda: stream_read(tok, x, blk_rows, grid=grid), 20, "stream_read_kernel")
+        wall_ms = graph_ms(torch, lambda: stream_read(tok, x, blk_rows, grid=grid))
+        plain_ms = graph_ms(torch, lambda: stream_read_reference(tok, x, blk_rows), calls=2, replays=3)
+        lib_ms = graph_ms(torch, lambda: x.sum(dtype=torch.float32))
+        nbytes = res["nbytes"]
+        b = bound(nbytes, 2 * 8 * 128 * (res["rows_total"] // blk_rows))
+        ceilings[name] = nbytes / (ms * 1e-3)
+        rates += [ceilings[name], nbytes / (wall_ms * 1e-3), nbytes / (lib_ms * 1e-3)]
+        print(f"stream_read {name} 256 MiB blk {blk_kib} KiB ({blk_rows} rows) grid {grid}: {ms * 1e3:.1f} us/call "
+              f"of device time (CUDA kernel; torch.profiler, mean of {records} records of 20 calls), "
+              f"{ceilings[name] / 1e9:.0f} GB/s = {ceilings[name] / HBM_BYTES_PER_S:.1%} of 3.35 TB/s; "
+              f"{wall_ms * 1e3:.1f} us/call of device wall in a CUDA graph of 50 calls "
+              f"({nbytes / wall_ms / 1e6:.0f} GB/s); bound {b[0] * 1e3:.1f} us; plain {plain_ms * 1e3:.1f} us; "
+              f"x.sum(dtype=float32) {lib_ms * 1e3:.1f} us (graph walls) [{card}]", flush=True)
+        kernels[name] = (ms, plain_ms, b, lib_ms)
+        del x
+    # kv_read_sum on attn_micro's own inputs (make_inputs, seed 0: K and V
+    # flattened to [B*C, 1024], tok padded from q as its pallas_read form
+    # does) at its default grid and at each grid timed below, then timed.
+    B, C = 64, 512
+    t = attn_micro.make_inputs(B, C, dev)
+    kflat, vflat = t["kflat"].view(B * C, 1024), t["vflat"].view(B * C, 1024)
+    tok_q = torch.nn.functional.pad(t["q"][0, :8, 0, :].float(), (0, 128 - attn_micro.D))
+    ref = kv_read_sum_reference(tok_q, kflat, vflat)
+    for grid in (None, 2 * sms, 4 * sms, 8 * sms):
+        check("kv_read_sum", kv_read_sum(tok_q, kflat, vflat, grid=grid), ref, TOL_KV_SUM,
+              f"B={B} C={C} attn_micro's inputs grid {grid or 'default'}")
+    del t
+    kv_grids = {n * sms: kernel_profile(torch, lambda: kv_read_sum(tok, kflat, vflat, grid=n * sms), 50,
+                                        "kv_read_sum_kernel")[0] for n in (2, 4, 8)}
+    print("kv_read_sum B=64 C=512 by grid: " + ", ".join(f"{grid} blocks {ms * 1e3:.1f} us" for grid, ms
+                                                          in kv_grids.items()) + f" [{card}]", flush=True)
+    kv_ms, kv_records = kernel_profile(torch, lambda: kv_read_sum(tok, kflat, vflat), 50, "kv_read_sum_kernel")
+    kv_wall = graph_ms(torch, lambda: kv_read_sum(tok, kflat, vflat))
+    kv_plain = graph_ms(torch, lambda: kv_read_sum_reference(tok, kflat, vflat), calls=5, replays=3)
+    kv_lib = graph_ms(torch, lambda: (kflat.sum(0, dtype=torch.float32), vflat.sum(0, dtype=torch.float32)))
+    kv_bytes = 2 * kflat.numel() * 2
+    kv_bound = bound(kv_bytes, 2 * kflat.numel())
+    rates += [kv_bytes / (t * 1e-3) for t in (kv_ms, kv_wall, kv_lib, *kv_grids.values())]
+    print(f"kv_read_sum B={B} C={C}: {kv_ms * 1e3:.1f} us/call of device time (CUDA kernel; torch.profiler, "
+          f"mean of {kv_records} records of 50 calls), {kv_bytes / kv_ms / 1e6:.0f} GB/s = "
+          f"{kv_bytes / (kv_ms * 1e-3) / HBM_BYTES_PER_S:.1%} of 3.35 TB/s; {kv_wall * 1e3:.1f} us/call of device "
+          f"wall in a CUDA graph of 50 calls; bound {kv_bound[0] * 1e3:.1f} us; plain {kv_plain * 1e3:.1f} us; the "
+          f"pair of column sums (sum(0, dtype=float32) of K and of V) {kv_lib * 1e3:.1f} us (graph walls) [{card}]",
+          flush=True)
+    floor_us = micro["pallas_read"][0]
+    for name, ceiling in (("kernel", "bfloat16"), ("kernel_i8", "int8")):
+        us = micro[name][0]
+        ceiling_us = attn_micro.step_bytes(name, B, C) / ceilings[ceiling] * 1e6
+        print(f"attn_micro {name}: {us:.1f} us/step = {floor_us / us:.2f} x the pallas_read floor's speed "
+              f"({floor_us:.1f} us for the bf16 K+V) and {ceiling_us / us:.2f} x the {ceiling} stream_read ceiling's "
+              f"({ceiling_us:.1f} us for its bytes) [{card}]", flush=True)
+    rates += [gbs * 1e9 for _, gbs in micro.values()]
+    if max(rates) > READ_RATE_LIMIT:
+        fail(f"a read reported {max(rates) / 1e9:.0f} GB/s, above 105% of 3.35 TB/s: the probe is wrong")
+    print(f"every read rate measured <= {max(rates) / 1e9:.0f} GB/s (limit {READ_RATE_LIMIT / 1e9:.0f})", flush=True)
+    ms, plain_ms, b, lib_ms = kernels["bfloat16"]
+    return {
+        "kernels": {"stream_read": (errs["stream_read"], ms, plain_ms, b, lib_ms),
+                    "kv_read_sum": (errs["kv_read_sum"], kv_ms, kv_plain, kv_bound, kv_lib)},
+        "launches": launches,
+    }
+
+
+def _write_prompt_wav(path: Path, seconds: float, rate: int, seed: int) -> None:
+    """A seeded voice-like prompt: three harmonics with a slow vibrato and a
+    little noise, 16-bit PCM."""
+    import numpy as np
+
+    from pocket_tts_tpu_torch.data.audio import audio_write
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * rate)) / rate
+    f0 = 140 + 20 * np.sin(2 * np.pi * 0.5 * t)
+    phase = 2 * np.pi * np.cumsum(f0) / rate
+    wav = 0.3 * np.sin(phase) + 0.15 * np.sin(2 * phase) + 0.08 * np.sin(3 * phase)
+    wav += 0.02 * rng.standard_normal(t.shape)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    audio_write(path, wav.astype(np.float32), rate)
+
+
+def clone_phase(torch, model, card, step_kernel, segment_kernel, dev) -> None:
+    """Phase 13: voice cloning at b6369a24 width in int8, from a WAV file,
+    with truncate, and from a [T] array; the cloned voice decoded through
+    the B=1 kernels; the clone latency split into its parts."""
+    import numpy as np
+
+    from pocket_tts_tpu_torch.models.flow_lm import FlowLMModel
+    from pocket_tts_tpu_torch.models.mimi import MimiModel
+    from pocket_tts_tpu_torch.models.tts_model import TTSModel
+
+    cfg = model.config
+    flow_lm = FlowLMModel(cfg.flow_lm, latent_dim=cfg.mimi.quantizer.dimension, speaker_dim=cfg.mimi.seanet.dimension)
+    gen = torch.Generator().manual_seed(13)
+    params = {"flow_lm": flow_lm.init_params(gen), "mimi": MimiModel(cfg.mimi).init_params(gen)}
+    params["flow_lm"]["speaker_proj_weight"] = torch.randn(flow_lm.dim, flow_lm.speaker_dim, generator=gen) * 0.02
+    clone = TTSModel.from_params(cfg, params, model.tokenizer, "int8", device=dev, eos_threshold=1e9)
+    del params
+    wav10, wav35 = ROOT / "build" / "clone_10s_16k.wav", ROOT / "build" / "clone_35s_16k.wav"
+    _write_prompt_wav(wav10, 10.0, 16000, seed=10)
+    _write_prompt_wav(wav35, 35.0, 16000, seed=35)
+
+    def check_state(tag, state, frames):
+        tensors = list(_tensors(state.tree))
+        on_card = all(t.device.type == dev.type for t in tensors)
+        print(f"clone {tag}: prompt {state.pos[0]} frames (expected {frames}), written {state.written}, "
+              f"{len(tensors)} state tensors on the card: {on_card}", flush=True)
+        if state.pos != [frames] or state.written != frames or not on_card:
+            fail(f"clone {tag}: state pos {state.pos}, written {state.written}, on the card {on_card}; "
+                 f"expected {frames} frames")
+
+    frame = clone.frame_size
+    state = clone.get_state_for_audio_prompt(wav10)
+    check_state("10 s WAV", state, -(-10 * clone.sample_rate // frame))
+    step_kernel.launches = segment_kernel.launches = 0
+    segment_kernel.frames = 0
+    audio = clone.generate_audio(state, TEXT)
+    torch.cuda.synchronize()
+    decoded = clone.last_generation["frames"]
+    kernel_frames = step_kernel.launches + segment_kernel.frames
+    finite = bool(np.isfinite(audio).all())
+    print(f"clone 10 s WAV: generate_audio {audio.shape[0]} samples ({audio.shape[0] / clone.sample_rate:.2f} s), "
+          f"finite {finite}, {decoded} frames decoded, {kernel_frames} through the B=1 kernels "
+          f"(step {step_kernel.launches}, segment {segment_kernel.launches} launches)", flush=True)
+    if audio.ndim != 1 or audio.shape[0] == 0 or audio.shape[0] % frame or not finite:
+        fail(f"clone: generate_audio returned {audio.shape}, not finite audio of whole {frame}-sample frames")
+    if decoded <= 0 or kernel_frames != decoded:
+        fail(f"clone: {decoded} frames decoded but {kernel_frames} went through the B=1 kernels")
+    long_state = clone.get_state_for_audio_prompt(wav35, truncate=True)
+    check_state("35 s WAV, truncate=True", long_state, -(-30 * clone.sample_rate // frame))
+    if long_state.pos[0] > 380:
+        fail(f"clone: truncate=True kept {long_state.pos[0]} frames")
+    del long_state
+    samples = (np.random.default_rng(7).standard_normal(3 * clone.sample_rate + 777) * 0.1).astype(np.float32)
+    check_state("[T] array", clone.get_state_for_audio_prompt(samples), -(-samples.shape[0] // frame))
+
+    # Clone latency: CUDA events around each part, the card idle between
+    # parts; read + convert runs on the host, so its events time its wall.
+    parts = collections.defaultdict(list)
+    walls = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        wav = clone._read_audio_prompt(wav10)
+        ev[1].record()
+        with torch.no_grad():
+            x = torch.as_tensor(wav[None], dtype=torch.float32).to(clone.device)
+            latents = clone.mimi.encode_to_latent(clone.params["mimi"], x).transpose(1, 2)
+            ev[2].record()
+            prompt = clone.flow_lm.project_speaker(clone.params["flow_lm"], latents)
+            ev[3].record()
+        clone._state_from_prompt(prompt)
+        ev[4].record()
+        torch.cuda.synchronize()
+        walls.append((time.monotonic() - t0) * 1e3)
+        for i, name in enumerate(("read + convert", "encode", "projection", "prefill")):
+            parts[name].append(ev[i].elapsed_time(ev[i + 1]))
+    med = {name: statistics.median(v[1:]) for name, v in parts.items()}  # the first run warms up
+    print("clone latency, 10 s 16 kHz WAV, median of 5 warm runs: " + ", ".join(
+        f"{name} {ms:.2f} ms" for name, ms in med.items()) + f"; sum {sum(med.values()):.2f} ms, host wall "
+        f"{statistics.median(walls[1:]):.2f} ms (first run {walls[0]:.1f} ms); CUDA events [{card}]", flush=True)
+    del clone
+    torch.cuda.empty_cache()
 
 
 def _expected_frames(model, text: str, text_pad: int) -> int:

@@ -1,8 +1,10 @@
-"""WAV output: 16-bit PCM conversion, a seekable WAV writer and a streaming
-WAV writer for pipes and sockets (stdlib only).
+"""Audio I/O: reading a voice prompt, 16-bit PCM conversion, a seekable WAV
+writer and a streaming WAV writer for pipes and sockets.
 
-Copied from the JAX package's writers (pocket_tts_tpu/data/audio.py) so the
-port needs no import of it. The streaming writer emits the header before any
+Copied from the JAX package's reader and writers
+(pocket_tts_tpu/data/audio.py) so the port needs no import of it. `.wav`
+reads through the stdlib `wave` module (16-bit PCM); other formats need the
+optional `soundfile` package. The streaming writer emits the header before any
 audio exists, with a placeholder frame count that is never patched (a pipe
 cannot be seeked back into); it may hold back the first
 FIRST_CHUNK_LENGTH_SECONDS of audio and release it in one write; it pads the
@@ -34,6 +36,44 @@ def pcm16_bytes(chunk: Any) -> bytes:
     if flat.dtype != np.int16:
         flat = (np.clip(flat, -1.0, 1.0) * 32767).astype(np.int16)
     return flat.tobytes()
+
+
+def _downmix_to_mono(samples: np.ndarray, n_channels: int) -> np.ndarray:
+    if n_channels > 1:
+        samples = samples.reshape(-1, n_channels).mean(axis=1)
+    return samples
+
+
+def audio_read(filepath: str | Path) -> tuple[np.ndarray, int]:
+    """Read an audio file -> (float32 [1, T] in [-1, 1], sample_rate)."""
+    filepath = Path(filepath)
+    if filepath.suffix.lower() == ".wav":
+        return _read_wav_stdlib(filepath)
+    return _read_via_soundfile(filepath)
+
+
+def _read_wav_stdlib(filepath: Path) -> tuple[np.ndarray, int]:
+    with wave.open(str(filepath), "rb") as f:
+        rate = f.getframerate()
+        channels = f.getnchannels()
+        width = f.getsampwidth()
+        raw = f.readframes(-1)
+    if width != _PCM16_BYTES:
+        raise ValueError(f"Only 16-bit WAV supported by the stdlib reader, got {8 * width}-bit")
+    mono = _downmix_to_mono(np.frombuffer(raw, dtype=np.int16).astype(np.float32) / 32768.0, channels)
+    return mono[None, :], rate
+
+
+def _read_via_soundfile(filepath: Path) -> tuple[np.ndarray, int]:
+    try:
+        import soundfile as sf
+    except ImportError as e:
+        raise ImportError(
+            "soundfile is required to read non-WAV audio files. Install with: pip install soundfile"
+        ) from e
+    data, rate = sf.read(str(filepath), dtype="float32")
+    mono = data if data.ndim == 1 else data.mean(axis=1)
+    return mono[None, :], rate
 
 
 def audio_write(filepath: str | Path, audio: np.ndarray, sample_rate: int) -> None:

@@ -19,7 +19,8 @@ logger = logging.getLogger(__name__)
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Generate speech from text using pocket-tts (PyTorch/CUDA port)")
     p.add_argument("text", help="Text to convert to speech")
-    p.add_argument("--voice", "-v", default="marius", help="Voice name (default: marius)")
+    p.add_argument("--voice", "-v", default="marius",
+                   help="Voice name, or a WAV file to clone the voice of (default: marius)")
     p.add_argument("--output", "-o", default="output.wav", help="Output WAV file")
     p.add_argument("--max-tokens", type=int, default=500, help="Max tokens per chunk")
     p.add_argument("--frames-after-eos", type=int, default=7, help="Frames after EOS")
@@ -39,6 +40,7 @@ def build_parser() -> argparse.ArgumentParser:
 def synthesize_to_file(args: argparse.Namespace) -> Path:
     """Run the full pipeline for one request and return the written path."""
     model = TTSModel.load_model(param_dtype=args.param_dtype, device=args.device)
+    logger.info("Preparing voice state '%s'...", args.voice)
     voice_state = model.get_state_for_audio_prompt(args.voice)
     audio = model.generate_audio(
         voice_state,

@@ -114,6 +114,11 @@ class FlowLMModel:
         """Token ids [B, T] -> conditioning embeddings [B, T, d_model]."""
         return params["conditioner"]["embed"]["weight"][tokens.long()]
 
+    def project_speaker(self, params: Params, latents: torch.Tensor) -> torch.Tensor:
+        """Mimi encoder latents [B, T, speaker_dim] -> conditioning [B, T,
+        d_model], in float32 (reference: pocket_tts_mlx/models/tts_model.py:271-276)."""
+        return torch.matmul(latents.float(), params["speaker_proj_weight"].float().T)
+
     def prefill(self, params: Params, state: State, embeddings: torch.Tensor, lengths: list[int]) -> State:
         """Fill the KV cache with right-padded conditioning [B, T, d_model];
         padded positions are -1 and never valid."""

@@ -1,13 +1,19 @@
-"""Mimi codec, decode side: 32-d latent frames -> 24 kHz waveform
-(port of the decode path of pocket_tts_tpu/models/mimi.py; reference:
+"""Mimi codec: 32-d latent frames -> 24 kHz waveform, and a waveform ->
+512-d latent frames for voice cloning
+(port of pocket_tts_tpu/models/mimi.py; reference:
 pocket_tts_mlx/models/mimi.py:17-85).
+
+Decode (streaming, explicit state):
 
     [B, 32, T] --quantizer 1x1 conv--> [B, 512, T]
       --depthwise ConvTranspose stride 16--> [B, 512, 16 T]  (200 Hz)
       --2-layer windowed transformer (ring, context 250)--> [B, 512, 16 T]
       --SEANet decoder (x6, x5, x4 transposed convs)--> [B, 1, 1920 T]
 
-The encoder side (voice cloning) is not part of this port yet.
+Encode (`encode_to_latent`, non-streaming over the whole prompt): the
+waveform, end-padded to whole 1920-sample frames, through the SEANet encoder
+(200 Hz), the encoder transformer and the stride-16 downsampling conv
+(12.5 Hz).
 """
 
 from __future__ import annotations
@@ -18,9 +24,9 @@ from dataclasses import dataclass
 import torch
 
 from pocket_tts_tpu_torch.config.schema import MimiConfig
-from pocket_tts_tpu_torch.models.seanet import SEANetDecoder
+from pocket_tts_tpu_torch.models.seanet import SEANetDecoder, SEANetEncoder
 from pocket_tts_tpu_torch.ops.attention import _uniform
-from pocket_tts_tpu_torch.ops.conv import StreamingConvTranspose1d, conv1d
+from pocket_tts_tpu_torch.ops.conv import StreamingConv1d, StreamingConvTranspose1d, conv1d, pad_for_conv1d
 from pocket_tts_tpu_torch.ops.transformer import ProjectedTransformer
 
 Params = dict
@@ -41,10 +47,9 @@ class MimiModel:
     def frame_size(self) -> int:
         return int(self.config.sample_rate / self.config.frame_rate)
 
-    @property
-    def decoder(self) -> SEANetDecoder:
+    def _seanet(self, cls):
         s = self.config.seanet
-        return SEANetDecoder(
+        return cls(
             channels=s.channels,
             dimension=s.dimension,
             n_filters=s.n_filters,
@@ -57,6 +62,18 @@ class MimiModel:
             pad_mode=s.pad_mode,
             compress=s.compress,
         )
+
+    @property
+    def encoder(self) -> SEANetEncoder:
+        return self._seanet(SEANetEncoder)
+
+    @property
+    def decoder(self) -> SEANetDecoder:
+        return self._seanet(SEANetDecoder)
+
+    @property
+    def encoder_transformer(self) -> ProjectedTransformer:
+        return self.decoder_transformer  # the same shape; its own weights
 
     @property
     def decoder_transformer(self) -> ProjectedTransformer:
@@ -74,20 +91,31 @@ class MimiModel:
         )
 
     @property
-    def upsample_stride(self) -> int:
-        hop = math.prod(self.config.seanet.ratios)
-        stride = self.config.sample_rate / hop / self.config.frame_rate
+    def encoder_frame_rate(self) -> float:
+        return self.config.sample_rate / math.prod(self.config.seanet.ratios)
+
+    @property
+    def downsample_stride(self) -> int:
+        """Encoder frames per latent frame (16 at 200 Hz / 12.5 Hz); the
+        upsampler of the decode path has the same stride."""
+        stride = self.encoder_frame_rate / self.config.frame_rate
         if stride != int(stride):
             raise ValueError("encoder rate must be an integer multiple of the frame rate")
         return int(stride)
 
     @property
     def has_resample(self) -> bool:
-        return self.upsample_stride != 1
+        return self.downsample_stride != 1
+
+    @property
+    def downsample(self) -> StreamingConv1d:
+        s = self.downsample_stride
+        dim = self.config.seanet.dimension
+        return StreamingConv1d(dim, dim, kernel_size=2 * s, stride=s, bias=False, pad_mode="replicate")
 
     @property
     def upsample(self) -> StreamingConvTranspose1d:
-        s = self.upsample_stride
+        s = self.downsample_stride
         dim = self.config.seanet.dimension
         return StreamingConvTranspose1d(dim, dim, kernel_size=2 * s, stride=s, groups=dim, bias=False)
 
@@ -103,6 +131,12 @@ class MimiModel:
         }
         if self.has_resample:
             params["upsample"] = {"convtr": {"convtr": self.upsample.init_params(gen, dtype)}}
+        # The encoder side draws after the decoder side, so a seed gives the
+        # decode path the same weights as before the encoder was ported.
+        params["encoder"] = self.encoder.init_params(gen, dtype)
+        params["encoder_transformer"] = self.encoder_transformer.init_params(gen, dtype)
+        if self.has_resample:
+            params["downsample"] = {"conv": {"conv": self.downsample.init_params(gen, dtype)}}
         return params
 
     def init_decode_state(
@@ -112,7 +146,7 @@ class MimiModel:
         plus the largest chunk decoded in one call. Conv carries stay float32.
         `pos` is each stream's 200 Hz step count (the serving engine moves
         streams between slots with their own count)."""
-        chunk = max(1, max_chunk_frames) * self.upsample_stride
+        chunk = max(1, max_chunk_frames) * self.downsample_stride
         ring = ((self.config.transformer.context + chunk + 127) // 128 + 1) * 128
         state: State = {
             "decoder_transformer": self.decoder_transformer.init_state(batch_size, ring, kv_dtype, device),
@@ -148,3 +182,17 @@ class MimiModel:
         out, new_state["decoder"] = self.decoder(params["decoder"], emb, state["decoder"])
         new_state["pos"] = pos0 + T
         return out, new_state
+
+    def encode_to_latent(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        """Waveform [B, C, T] -> latent [B, 512, T'] at the frame rate,
+        non-streaming (voice cloning; reference: pocket_tts_mlx/models/mimi.py:77-85).
+        T' = ceil(T / frame_size): the waveform is end-padded to whole
+        frames."""
+        if x.ndim != 3:
+            raise ValueError(f"expected [B, C, T], got {tuple(x.shape)}")
+        x = pad_for_conv1d(x, self.frame_size, self.frame_size)
+        emb = self.encoder.forward(params["encoder"], x)
+        (emb,) = self.encoder_transformer.forward(params["encoder_transformer"], emb)
+        if self.has_resample:
+            emb = self.downsample.forward(params["downsample"]["conv"]["conv"], emb)
+        return emb

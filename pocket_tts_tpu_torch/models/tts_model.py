@@ -1,8 +1,10 @@
 """End-to-end TTS pipeline: text -> FlowLM decode -> Mimi
-(port of pocket_tts_tpu/models/tts_model.py without the engine, voice
-cloning and the mesh; reference: pocket_tts_mlx/models/tts_model.py:54-518).
+(port of pocket_tts_tpu/models/tts_model.py without the engine and the
+mesh; reference: pocket_tts_mlx/models/tts_model.py:54-518).
 
-`load_model`, `get_state_for_audio_prompt`, `generate_audio`,
+`load_model`, `get_state_for_audio_prompt` (a predefined voice, or voice
+cloning from a WAV file or a waveform array through the Mimi encoder and
+the speaker projection), `generate_audio`,
 `generate_audio_stream` and `generate_audio_batch` keep the JAX package's
 defaults, text chunking, segment schedules (streaming ramp 1, 2, 4, ... to
 32 frames; bulk 64-frame segments with a power-of-2 tail), capacity
@@ -30,6 +32,8 @@ import torch
 
 from pocket_tts_tpu_torch.conditioners.text import LUTConditioner
 from pocket_tts_tpu_torch.config.schema import Config, builtin_config_path, load_config
+from pocket_tts_tpu_torch.data.audio import audio_read
+from pocket_tts_tpu_torch.data.audio_utils import convert_audio
 from pocket_tts_tpu_torch.default_parameters import (
     DEFAULT_EOS_THRESHOLD,
     DEFAULT_LSD_DECODE_STEPS,
@@ -68,6 +72,16 @@ PREDEFINED_VOICES = {
     )
     for name in _VOICE_NAMES
 }
+
+VOICE_CLONING_UNSUPPORTED = (
+    "We could not download the weights for the model with voice cloning, "
+    "but you're trying to use voice cloning. "
+    f"Without voice cloning, you can use our catalog of voices {list(PREDEFINED_VOICES)}. "
+    "If you want access to the model with voice cloning, go to "
+    "https://huggingface.co/kyutai/pocket-tts and accept the terms, "
+    "then make sure you're logged in locally with `hf auth login`."
+)
+_PROMPT_MAX_SECONDS = 30  # truncate=True keeps this much of a voice file
 
 
 def _stream_steady(segment_frames: int) -> int:
@@ -160,6 +174,10 @@ class TTSModel:
         self.kv_int8 = bool(kv_int8)
         self.transfer_pcm16 = bool(transfer_pcm16)
         self.random_init = False
+        # False when the weights came from the checkpoint without voice
+        # cloning (load_model's fallback): cloning from a file is refused.
+        self.has_voice_cloning = True
+        self._voice_state_cache: dict = {}
         self._gen = torch.Generator().manual_seed(seed)
         self._warm_mimi: dict = {}
         # Schedule of the last generation: batch size, decoded frames, cache
@@ -214,13 +232,14 @@ class TTSModel:
         mimi = MimiModel(cfg.mimi)
         gen = torch.Generator().manual_seed(seed)
         params = {"flow_lm": flow_lm.init_params(gen), "mimi": mimi.init_params(gen)}
-        random_init = _load_weights(params, cfg, allow_random_init)
+        random_init, has_voice_cloning = _load_weights(params, cfg, allow_random_init)
         tokenizer = make_tokenizer(cfg.flow_lm.lookup_table.n_bins, str(cfg.flow_lm.lookup_table.tokenizer_path))
         model = cls.from_params(cfg, params, tokenizer, param_dtype, device, temp=temp,
                                 lsd_decode_steps=lsd_decode_steps, noise_clamp=noise_clamp,
                                 eos_threshold=eos_threshold, seed=seed, transfer_pcm16=transfer_pcm16,
                                 kv_int8=kv_int8)
         model.random_init = random_init
+        model.has_voice_cloning = has_voice_cloning
         return model
 
     @classmethod
@@ -254,29 +273,80 @@ class TTSModel:
 
     # ------------------------------------------------------------------ voice state
 
-    def get_state_for_audio_prompt(self, audio_conditioning: str) -> ModelState:
-        """FlowLM state for a predefined voice name. An unreachable voice
-        asset under random weights gives the JAX package's synthetic prompt
-        recipe (seeded by the name; values differ from JAX's)."""
-        if audio_conditioning not in PREDEFINED_VOICES:
-            raise ValueError(
-                f"voice '{audio_conditioning}' is not one of {list(PREDEFINED_VOICES)}; "
-                "voice cloning is not part of the PyTorch port yet"
-            )
+    def get_state_for_audio_prompt(
+        self, audio_conditioning: Union[Path, str, np.ndarray, torch.Tensor], truncate: bool = False
+    ) -> ModelState:
+        """FlowLM state for a voice: a predefined voice name, a WAV path or
+        local URI (cloned: read, converted to mono at the model rate, kept to
+        its first 30 s with truncate=True), or a waveform array [C, T] or
+        [T] at the model rate (cloned as it is). Cloning encodes the
+        waveform with Mimi, projects it to conditioning embeddings and
+        prefills a fresh cache with them (reference: tts_model.py:484-518)."""
+        if isinstance(audio_conditioning, str) and audio_conditioning in PREDEFINED_VOICES:
+            return self._predefined_voice_state(audio_conditioning)
+        if isinstance(audio_conditioning, (str, Path)):
+            if not self.has_voice_cloning:
+                raise ValueError(VOICE_CLONING_UNSUPPORTED)
+            wav = self._read_audio_prompt(audio_conditioning, truncate)
+        else:
+            wav = audio_conditioning if isinstance(audio_conditioning, torch.Tensor) else np.asarray(audio_conditioning)
+            if wav.ndim == 1:  # [T] -> [C=1, T] (arrays are taken as mono at the model rate)
+                wav = wav[None, :]
+        return self._state_from_prompt(self._encode_audio(wav[None]))
+
+    def _predefined_voice_state(self, name: str) -> ModelState:
+        """The prompt of a predefined voice. An unreachable voice asset under
+        random weights gives the JAX package's synthetic prompt recipe
+        (seeded by the name; values differ from JAX's)."""
         try:
-            tensors = load_safetensors(download_if_necessary(PREDEFINED_VOICES[audio_conditioning]))
+            tensors = load_safetensors(download_if_necessary(PREDEFINED_VOICES[name]))
         except (ConnectionError, FileNotFoundError):
             if not self.random_init:
                 raise
-            logger.warning("Voice asset '%s' unreachable; using a synthetic prompt.", audio_conditioning)
-            gen = torch.Generator().manual_seed(sum(audio_conditioning.encode()))
+            logger.warning("Voice asset '%s' unreachable; using a synthetic prompt.", name)
+            gen = torch.Generator().manual_seed(sum(name.encode()))
             return self._state_from_prompt(torch.randn(1, 125, self.flow_lm.dim, generator=gen) * 0.02)
         if "audio_prompt" not in tensors:
             raise KeyError("audio_prompt not found in voice embedding file")
         raw = np.asarray(tensors["audio_prompt"])
+        # Shape contract of the published voice assets: [1, T, d_model] float.
         if raw.ndim != 3 or raw.shape[0] != 1 or raw.shape[2] != self.flow_lm.dim:
-            raise ValueError(f"voice embedding must be [1, T, {self.flow_lm.dim}], got {raw.shape}")
+            raise ValueError(
+                f"voice embedding 'audio_prompt' must be [1, T, {self.flow_lm.dim}], got {tuple(raw.shape)}"
+            )
+        if raw.dtype.kind != "f":
+            raise ValueError(f"voice embedding 'audio_prompt' must be floating point, got {raw.dtype}")
         return self._state_from_prompt(torch.from_numpy(raw.astype(np.float32)))
+
+    def _read_audio_prompt(self, path: Union[Path, str], truncate: bool = False) -> np.ndarray:
+        """A voice file (local path or URI) -> float32 [1, T] mono at the
+        model rate; truncate=True keeps the first 30 s of the file."""
+        audio, sr = audio_read(download_if_necessary(str(path)))
+        if truncate and audio.shape[-1] > int(_PROMPT_MAX_SECONDS * sr):
+            audio = audio[..., : int(_PROMPT_MAX_SECONDS * sr)]
+            logger.info("Audio truncated to %d seconds", _PROMPT_MAX_SECONDS)
+        return convert_audio(audio, sr, self.sample_rate, 1)
+
+    @torch.no_grad()
+    def _encode_audio(self, audio: Union[np.ndarray, torch.Tensor]) -> torch.Tensor:
+        """Waveform [B, C, T] -> speaker conditioning [B, T', d_model]
+        float32 on the model's device, T' = ceil(T / frame_size). The
+        port encodes at the exact length: the JAX package pads to a
+        power-of-2 frame bucket only to bound its compiles, and the encode
+        chain is causal, so its first T' frames are these."""
+        x = torch.as_tensor(audio, dtype=torch.float32).to(self.device)
+        latents = self.mimi.encode_to_latent(self.params["mimi"], x).transpose(1, 2)
+        return self.flow_lm.project_speaker(self.params["flow_lm"], latents)
+
+    def _cached_get_state_for_audio_prompt(self, audio_conditioning: Union[Path, str],
+                                           truncate: bool = False) -> ModelState:
+        """Two-entry cache of voice states (reference: tts_model.py:478-482)."""
+        key = (str(audio_conditioning), truncate)
+        if key not in self._voice_state_cache:
+            if len(self._voice_state_cache) >= 2:
+                self._voice_state_cache.pop(next(iter(self._voice_state_cache)))
+            self._voice_state_cache[key] = self.get_state_for_audio_prompt(audio_conditioning, truncate)
+        return self._voice_state_cache[key]
 
     def _state_from_prompt(self, prompt: torch.Tensor) -> ModelState:
         """Prefill a fresh KV cache with conditioning embeddings [B, T, dim]."""
@@ -523,9 +593,11 @@ def stack_states(flow_lm: FlowLMModel, states: Sequence[ModelState]) -> ModelSta
     return ModelState(tree, pos, written=max(s.written for s in states))
 
 
-def _load_weights(params: dict, cfg: Config, allow_random_init: bool) -> bool:
+def _load_weights(params: dict, cfg: Config, allow_random_init: bool) -> tuple[bool, bool]:
     """Checkpoint resolution of the JAX package (local files only in the
-    port) -> True when the weights stay random."""
+    port): `weights_path`, else `weights_path_without_voice_cloning`, else
+    random weights -> (random_init, has_voice_cloning). has_voice_cloning is
+    False once `weights_path` could not be read, as in the JAX package."""
     if cfg.flow_lm.weights_path is not None:
         if cfg.mimi.weights_path is None:
             raise ValueError("If you specify flow_lm.weights_path you should specify mimi.weights_path")
@@ -534,18 +606,20 @@ def _load_weights(params: dict, cfg: Config, allow_random_init: bool) -> bool:
         flat = load_safetensors(download_if_necessary(str(cfg.mimi.weights_path)))
         load_state_dict(params["mimi"], flat, strip_prefix="model.")
     if cfg.weights_path is None:
-        return cfg.flow_lm.weights_path is None
+        return cfg.flow_lm.weights_path is None, True
+    has_voice_cloning = True
     for path in (cfg.weights_path, cfg.weights_path_without_voice_cloning):
-        if path is None:
-            continue
-        try:
-            weights_file = download_if_necessary(path)
-        except (ConnectionError, FileNotFoundError):
-            continue
-        loaded, skipped = load_state_dict(params, load_safetensors(weights_file))
-        logger.info("Loaded %d weights, skipped %d", loaded, skipped)
-        return False
+        if path is not None:
+            try:
+                weights_file = download_if_necessary(path)
+            except (ConnectionError, FileNotFoundError):
+                weights_file = None
+            if weights_file is not None:
+                loaded, skipped = load_state_dict(params, load_safetensors(weights_file))
+                logger.info("Loaded %d weights, skipped %d", loaded, skipped)
+                return False, has_voice_cloning
+        has_voice_cloning = False
     if not allow_random_init:
         raise FileNotFoundError(f"no checkpoint reachable for {cfg.weights_path}")
     logger.warning("No checkpoint reachable (offline?). Using RANDOM weights — audio will be noise.")
-    return True
+    return True, has_voice_cloning

@@ -102,6 +102,18 @@ def stream_ptr() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+def count_launch(wrapper) -> bool:
+    """Add one to `wrapper.launches` for the kernel it just launched, and
+    say whether it counted. Under CUDA graph capture a kernel is not
+    launched but becomes a node of the graph, so nothing is counted; the
+    graph launches it at each replay, and the code that replays the graph
+    counts those launches (utils/timing.best_seconds)."""
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        return False
+    wrapper.launches += 1
+    return True
+
+
 _P = ctypes.c_void_p
 
 
@@ -149,4 +161,8 @@ _SIGNATURES = {
     "ptt_row_write": ([_P, _P, _P, _I, _I, _P], _I),
     # (x, out, C, heads, width, stream)
     "ptt_head_slice_weighted_sum": ([_P, _P, _I, _I, _I, _P], _I),
+    # (x, kind, rows_total, blk_rows, tok, out, grid, stream)
+    "ptt_stream_read": ([_P, _I, _I, _I, _P, _P, _I, _P], _I),
+    # (kflat, vflat, rows, tok, out, grid, stream)
+    "ptt_kv_read_sum": ([_P, _P, _I, _P, _P, _I, _P], _I),
 }

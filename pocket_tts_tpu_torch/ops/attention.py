@@ -14,7 +14,9 @@
   (prefill, T > 1, B == 1) runs the dense `sdpa_slots`.
 - WindowedRingAttention (Mimi codec): a shift-append ring kept ordered
   oldest -> newest; slot positions are arithmetic, and long chunks attend in
-  128-query blocks over a (context + 128)-wide key band.
+  128-query blocks over a (context + 128)-wide key band. Its `forward` is
+  the non-streaming form over a whole sequence (the Mimi encoder of voice
+  cloning).
 
 Numerics mirror the JAX package: scores, softmax and accumulation in
 float32, q cast to the cache dtype before the score product, softmax
@@ -29,7 +31,7 @@ from dataclasses import dataclass
 import torch
 
 from pocket_tts_tpu_torch.ops.linear import linear, qkv_proj
-from pocket_tts_tpu_torch.ops.rope import apply_rope
+from pocket_tts_tpu_torch.ops.rope import apply_rope, rope_angles
 
 Params = dict
 State = dict
@@ -253,3 +255,16 @@ class WindowedRingAttention:
                 )
             )
         return torch.cat(outs, dim=1)
+
+    def forward(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        """Non-streaming windowed attention over a whole sequence [B, T, E]:
+        RoPE at positions 0..T-1, query i attends to keys j with
+        0 <= i - j < context (reference: pocket_tts_mlx/modules/attention.py:210-213)."""
+        B, T, _ = x.shape
+        q, k, v = _split_qkv(qkv_proj(x, params["in_proj"]["weight"]), self.num_heads)
+        positions = torch.arange(T, dtype=torch.int32, device=x.device)[None, :].expand(B, T)
+        q, k = apply_rope(q, k, rope_angles(positions, self.head_dim, self.max_period))
+        idx = torch.arange(T, device=x.device)
+        delta = idx[:, None] - idx[None, :]
+        out = sdpa_slots(q, k, v, ((delta >= 0) & (delta < self.context))[None, None])
+        return linear(out.reshape(B, T, self.embed_dim), params["out_proj"]["weight"])

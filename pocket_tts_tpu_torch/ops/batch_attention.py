@@ -209,7 +209,7 @@ def batch_decode_attention(q, k, v, slot_pos, qpos, k_scale=None, v_scale=None, 
         slot_pos.data_ptr(), slot_pos.stride(0), qpos.data_ptr(), ks_ptr, vs_ptr, sc_stride, B, C, H, R,
         threads, stages, split, chunk, smem, out.data_ptr(), _cuda.stream_ptr(),
     )
-    batch_decode_attention.launches += 1
+    _cuda.count_launch(batch_decode_attention)
     if err:
         raise RuntimeError(f"batch_decode_attention: CUDA error {err}")
     return out.view(B, H, 1, d)

@@ -50,6 +50,22 @@ def conv_transpose1d(x, weight, bias=None, stride=1, groups=1) -> torch.Tensor:
     return y
 
 
+def get_extra_padding_for_conv1d(length: int, kernel_size: int, stride: int, padding_total: int = 0) -> int:
+    """End padding so the conv consumes the signal in whole frames
+    (reference: pocket_tts_mlx/modules/conv.py:12-17)."""
+    n_frames = (length - kernel_size + padding_total) / stride + 1
+    ideal_length = (math.ceil(n_frames) - 1) * stride + (kernel_size - padding_total)
+    return int(ideal_length - length)
+
+
+def pad_for_conv1d(x: torch.Tensor, kernel_size: int, stride: int, padding_total: int = 0) -> torch.Tensor:
+    """Zero-pad the end of [B, C, T] for whole-frame convolution."""
+    extra = get_extra_padding_for_conv1d(x.shape[-1], kernel_size, stride, padding_total)
+    if extra > 0:
+        x = F.pad(x, (0, extra))
+    return x
+
+
 @dataclass(frozen=True)
 class StreamingConv1d:
     """Causal streaming Conv1d: carries the trailing (effective_kernel -
@@ -107,6 +123,13 @@ class StreamingConv1d:
             if self.pad_mode == "replicate":
                 new_state["first"] = torch.zeros_like(state["first"])
         return y, new_state
+
+    def forward(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        """Non-streaming call: left-pad by the overlap (zeros, or the edge
+        value for pad_mode='replicate')."""
+        if self.overlap:
+            x = F.pad(x, (self.overlap, 0), mode="replicate" if self.pad_mode == "replicate" else "constant")
+        return conv1d(x, params["weight"], params.get("bias"), self.stride, self.dilation, self.groups)
 
 
 @dataclass(frozen=True)

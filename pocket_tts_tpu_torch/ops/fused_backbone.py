@@ -227,7 +227,7 @@ def fused_backbone_step(packed, latent, is_bos: bool, k_caches, v_caches, slot_p
         ctypes.byref(args), latent.data_ptr(), int(bool(is_bos)), int(qpos), widx,
         h.data_ptr(), eos.data_ptr(), _cuda.stream_ptr(),
     )
-    fused_backbone_step.launches += 1
+    _cuda.count_launch(fused_backbone_step)
     if err:
         raise RuntimeError(f"fused_backbone_step: CUDA error {err}")
     # `scratch` stays referenced until here; later reuse of its memory is

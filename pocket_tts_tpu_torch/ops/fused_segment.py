@@ -165,8 +165,8 @@ def fused_segment_decode(
         ctypes.byref(args), ctypes.byref(fargs), latent.data_ptr(), int(bool(is_bos)), noise.data_ptr(),
         S, int(qpos0), int(widx0), latents.data_ptr(), eos.data_ptr(), _cuda.stream_ptr(),
     )
-    fused_segment_decode.launches += 1
-    fused_segment_decode.frames += S
+    if _cuda.count_launch(fused_segment_decode):
+        fused_segment_decode.frames += S
     if err:
         raise RuntimeError(f"fused_segment_decode: CUDA error {err}")
     # scratch / fscratch stay referenced until here (see fused_backbone_step).

@@ -60,7 +60,7 @@ def row_write(cache: torch.Tensor, row: torch.Tensor, index: torch.Tensor) -> to
     _check_aligned("row", row)
     err = _cuda.library("probes").ptt_row_write(cache.data_ptr(), row.data_ptr(), index.data_ptr(), C, E,
                                                 _cuda.stream_ptr())
-    row_write.launches += 1
+    _cuda.count_launch(row_write)
     if err:
         raise RuntimeError(f"row_write: CUDA error {err}")
     return cache
@@ -86,7 +86,7 @@ def head_slice_weighted_sum(x: torch.Tensor, heads: int = 16, width: int = 64) -
     out = torch.empty(x.shape[0], width, dtype=torch.float32, device=x.device)
     err = _cuda.library("probes").ptt_head_slice_weighted_sum(x.data_ptr(), out.data_ptr(), x.shape[0], heads,
                                                               width, _cuda.stream_ptr())
-    head_slice_weighted_sum.launches += 1
+    _cuda.count_launch(head_slice_weighted_sum)
     if err:
         raise RuntimeError(f"head_slice_weighted_sum: CUDA error {err}")
     return out

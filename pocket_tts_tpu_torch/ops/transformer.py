@@ -6,6 +6,8 @@ Pre-LN (eps=1e-5) blocks with exact-erf GELU feed-forward, optional
 LayerScale, and either full-history causal attention ("flow_lm") or the
 windowed ring ("mimi"). Parameters and streaming state are plain dicts of
 tensors with the JAX package's tree layout; the KV caches update in place.
+`forward` is the non-streaming call over a whole sequence (mimi kind: the
+encoder of voice cloning).
 """
 
 from __future__ import annotations
@@ -89,6 +91,12 @@ class StreamingTransformerLayer:
         x = x + self._scaled(params, "layer_scale_1", update)
         return self._ff(params, x)
 
+    def forward(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        """Non-streaming (whole-sequence) call; mimi kind only."""
+        h = layer_norm(x, params["norm1"]["weight"], params["norm1"]["bias"], eps=1e-5)
+        x = x + self._scaled(params, "layer_scale_1", self.self_attn.forward(params["self_attn"], h))
+        return self._ff(params, x)
+
 
 @dataclass(frozen=True)
 class StreamingTransformer:
@@ -143,6 +151,12 @@ class StreamingTransformer:
             state["widx"] = widx + x.shape[1]
         return x
 
+    def forward(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        layer = self.layer
+        for l_params in params["layers"]:
+            x = layer.forward(l_params, x)
+        return x
+
 
 @dataclass(frozen=True)
 class ProjectedTransformer:
@@ -192,12 +206,25 @@ class ProjectedTransformer:
     def init_state(self, batch_size: int, capacity: int, dtype=torch.float32, device="cpu") -> State:
         return self.transformer.init_state(batch_size, capacity, dtype, device)
 
-    def __call__(self, params, x, state, positions, pos0) -> tuple[torch.Tensor, ...]:
+    @staticmethod
+    def _project_in(params: Params, x: torch.Tensor) -> torch.Tensor:
         h = x.transpose(1, 2)  # [B, C, T] -> [B, T, C]
         if "input_proj" in params:
             h = linear(h, params["input_proj"]["weight"])
-        z = self.transformer(params["transformer"], h, state, positions, pos0=pos0)
+        return h
+
+    @staticmethod
+    def _project_out(params: Params, z: torch.Tensor) -> tuple[torch.Tensor, ...]:
         return tuple(
             (linear(z, proj["weight"]) if "weight" in proj else z).transpose(1, 2)
             for proj in params["output_projs"]
         )
+
+    def __call__(self, params, x, state, positions, pos0) -> tuple[torch.Tensor, ...]:
+        z = self.transformer(params["transformer"], self._project_in(params, x), state, positions, pos0=pos0)
+        return self._project_out(params, z)
+
+    def forward(self, params: Params, x: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        """Non-streaming call over a whole sequence [B, C, T]."""
+        z = self.transformer.forward(params["transformer"], self._project_in(params, x))
+        return self._project_out(params, z)

@@ -3,8 +3,9 @@
 
 Stdlib only (http.server): GET /tts?text=...&voice=marius streams a chunked
 WAV response whose frames are written as the engine decodes them; 404 for
-another path, 400 for empty text, 500 when the request cannot be set up, and
-503 + Retry-After when the engine sheds load. Run:
+another path, 400 for empty text or a voice that is not one of the
+predefined voices, 500 when the request cannot be set up, and 503 +
+Retry-After when the engine sheds load. Run:
 
     python -m pocket_tts_tpu_torch.serving.server --port 8080 --slots 8
 """
@@ -18,7 +19,7 @@ import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from pocket_tts_tpu_torch.data.audio import StreamingWAVWriter
-from pocket_tts_tpu_torch.models.tts_model import TTSModel
+from pocket_tts_tpu_torch.models.tts_model import PREDEFINED_VOICES, TTSModel
 from pocket_tts_tpu_torch.serving.engine import EngineOverloaded, TTSEngine
 
 logger = logging.getLogger(__name__)
@@ -50,8 +51,8 @@ class _Chunked:
 
 def make_handler(model: TTSModel, engine: TTSEngine):
     """The request handler class of a server over `engine`. Handler threads
-    build voice states (one at a time, cached) and submit; the engine's
-    thread does all the decoding."""
+    build the states of predefined voices (one at a time, cached) and
+    submit; the engine's thread does all the decoding."""
     voice_cache: dict = {}
     voice_lock = threading.Lock()
 
@@ -74,6 +75,13 @@ def make_handler(model: TTSModel, engine: TTSEngine):
             voice = (params.get("voice") or ["marius"])[0]
             if not text.strip():
                 self.send_error(400, "missing text")
+                return
+            if voice not in PREDEFINED_VOICES:
+                # The model also clones a voice from a file or a local URI;
+                # a client names only a predefined voice, so no request reads
+                # a file on the server's host and the voice cache stays
+                # bounded.
+                self.send_error(400, f"unknown voice; use one of {list(PREDEFINED_VOICES)}")
                 return
             try:
                 handle = engine.submit(text, voice_state(voice))

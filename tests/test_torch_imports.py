@@ -25,6 +25,13 @@ MODULES = [
     "pocket_tts_tpu_torch.serving.server",
     "pocket_tts_tpu_torch.ops.probes",
     "pocket_tts_tpu_torch.probes",
+    "pocket_tts_tpu_torch.ops.read_probes",
+    "pocket_tts_tpu_torch.bw_probe",
+    "pocket_tts_tpu_torch.attn_micro",
+    "pocket_tts_tpu_torch.data.audio",
+    "pocket_tts_tpu_torch.data.audio_utils",
+    "pocket_tts_tpu_torch.models.seanet",
+    "pocket_tts_tpu_torch.models.mimi",
 ]
 
 
@@ -67,7 +74,8 @@ def _c_entry_points():
 
 
 @pytest.mark.parametrize("name", ["ptt_fused_backbone_step", "ptt_fused_segment_decode", "ptt_batch_decode_attention",
-                                  "ptt_row_write", "ptt_head_slice_weighted_sum"])
+                                  "ptt_row_write", "ptt_head_slice_weighted_sum", "ptt_stream_read",
+                                  "ptt_kv_read_sum"])
 def test_ctypes_signature_matches_the_c_entry_point(name):
     """Each kernel's ctypes argtypes have one entry per parameter of its C
     entry point, a pointer for a pointer and an int for an int: a missing

@@ -127,6 +127,18 @@ def test_error_paths(served):
     assert exc.value.code == 400
 
 
+@pytest.mark.parametrize("voice", ["/etc/hostname", "file:///etc/hostname", "prompt.wav", "no-such-voice"])
+def test_voice_outside_the_predefined_set_is_refused(served, voice):
+    """A voice names a predefined voice only: a path or URI that the model
+    would read from the server's disk gets a 400 and is never loaded."""
+    url, calls = served
+    query = urllib.parse.urlencode({"text": "Hello there.", "voice": voice})
+    with pytest.raises(urllib.error.HTTPError) as exc:
+        urllib.request.urlopen(f"{url}/tts?{query}", timeout=30)
+    assert exc.value.code == 400
+    assert voice not in calls
+
+
 def test_saturated_engine_returns_503():
     """Backpressure is HTTP 503 + Retry-After: a server whose engine bound is
     0 sheds every submit."""
