@@ -6,12 +6,16 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases (any failure exits non-zero and prints no result line):
   1. card name and power limit (nvidia-smi); CUDA must be available;
-  2. build the four CUDA sources from pocket_tts_tpu_torch/csrc with nvcc
-     (sm_90a), all at once, and print their registers and spills;
+  2. build the five CUDA sources from pocket_tts_tpu_torch/csrc with nvcc
+     (sm_90a), all at once, and print each kernel's registers, shared
+     memory and spills, and fused_segment_decode's cooperative grid (blocks
+     per SM) and work split at b6369a24 width;
   3. hold each kernel against its plain PyTorch version on the card, at the
      b6369a24 geometry with a prefilled C=256 cache: fused_backbone_step for
      a BOS and a non-BOS frame (and at C=512), fused_segment_decode at S=8
-     and S=64 (outputs, full updated caches, slot_pos); batch_decode_attention
+     with BOS, at S=64, at S=64 with the write index clamped (widx0 + S >
+     C - 1) and at S=64 with C=224, off its attention chunk (outputs, full
+     updated caches, slot_pos); batch_decode_attention
      at H=16, d=64 for bf16 and int8 caches (BATCH_CASES: B=64 with C=512
      read at 512 and 256 and C=384 read at 384 and a ragged 200, rows past
      the limit poisoned; the 4-voice batch's B=4 x 512 read at 512, 384 and
@@ -27,9 +31,13 @@ Phases (any failure exits non-zero and prints no result line):
      a WAV is written;
   5. at the cache capacity the main path decoded at: each kernel against
      its plain version once more, then warm timings beside the card's name
-     and power limit: each kernel and its plain version, generate_audio's
+     and power limit: each kernel and its plain version (fused_segment_decode
+     at S=64 by torch.profiler kernel time, one kernel per call, beside the
+     wall between CUDA events; fused_backbone_step by CUDA events), generate_audio's
      real-time factor and generate_audio_stream's time to first audio
-     (medians of several warm runs);
+     (medians of several warm runs), and one warm generate_audio under
+     torch.profiler (device busy time, kernel records, idle share against
+     the unprofiled wall);
   6. the batch path: generate_audio_batch at b6369a24 width, int8 weights,
      (a) 64 texts of mixed length with one shared voice, bf16 KV, (b) the
      same with kv_int8=True, (c) 4 streams with 4 voices. Every stream
@@ -129,6 +137,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 TEXT = "The quick brown fox jumps over the lazy dog. It was a bright cold day in April."
 C_TEST = 256  # cache capacity of the first kernel comparisons (two 128-slot buckets)
+C_OFF_CHUNK = 224  # the 200-row engine's capacity: 3.5 attention chunks of fused_segment_decode
 RUNS_RTF, RUNS_TTFA = 5, 9  # warm runs behind each end-to-end median
 RUNS_BATCH_RTF = 3  # warm generate_audio_batch runs behind the B=64 median
 BATCH_WORDS = (
@@ -243,8 +252,20 @@ def main() -> None:
     print(f"build: {time.monotonic() - t0:.1f} s  {json.dumps(_cuda.BUILD_SECONDS)}", flush=True)
     for name in sources:
         for line in _cuda.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"  ptxas[{name}] {line.strip()}")
+    from pocket_tts_tpu_torch.config.schema import builtin_config_path, load_config
+    from pocket_tts_tpu_torch.ops.fused_segment import launch_plan
+
+    cfg = load_config(builtin_config_path("b6369a24"))
+    t = cfg.flow_lm.transformer
+    seg_dims = (t.num_layers, t.d_model, t.num_heads, t.d_model * t.hidden_scale, cfg.mimi.quantizer.dimension,
+                cfg.flow_lm.flow.dim, cfg.flow_lm.flow.depth)
+    plan, _ = launch_plan(torch.cuda.current_device(), *seg_dims, C_TEST)
+    print(f"fused_segment_decode: one cooperative launch of {plan['blocks']} blocks ({plan['blocks_per_sm']} per SM "
+          f"of {torch.cuda.get_device_properties(0).multi_processor_count}) x 512 threads, "
+          f"{plan['shared_bytes']} bytes of dynamic shared memory, {plan['barriers_per_frame']} phases a frame, "
+          f"attention in {plan['chunks']} chunks of {plan['chunk']} rows a head at C={C_TEST}", flush=True)
 
     # ---------------------------------------------------------------- phase 3
     t0 = time.monotonic()
@@ -296,21 +317,22 @@ def main() -> None:
         print(f"fused_backbone_step C={C} bos={is_bos}: max|h| err {e_h:.3g}, eos err {e_eos:.3g}, "
               f"cache err {e_c:.3g} (tol {TOL_STEP}; eos {TOL_EOS})", flush=True)
 
-    def compare_segment(base, S, is_bos):
+    def compare_segment(base, S, is_bos, widx0=100):
         C = base["transformer"]["layers"][0]["k"].shape[1]
         sk, sr = copy.deepcopy(base), copy.deepcopy(base)
         noise = (torch.randn(S, ldim, generator=gen) * 0.8).to(dev)
-        lk, ek = fused_segment_decode(packed, flow_packed, latent, is_bos, noise, *cache_args(sk), 100, 100)
-        lr, er = fused_segment_decode_reference(packed, flow_packed, latent, is_bos, noise, *cache_args(sr), 100, 100)
+        lk, ek = fused_segment_decode(packed, flow_packed, latent, is_bos, noise, *cache_args(sk), 100, widx0)
+        lr, er = fused_segment_decode_reference(packed, flow_packed, latent, is_bos, noise, *cache_args(sr), 100,
+                                                widx0)
         torch.cuda.synchronize()
+        tag = f"fused_segment_decode C={C} S={S} bos={is_bos} widx0={widx0}"
         e_l, e_mean, e_eos = max_err(lk, lr), float((lk - lr).abs().mean()), max_err(ek, er)
-        e_c = compare_states(f"fused_segment_decode C={C} S={S}", sk, sr, TOL_SEGMENT)
+        e_c = compare_states(tag, sk, sr, TOL_SEGMENT)
         if not (e_l <= TOL_SEGMENT and e_mean <= TOL_SEGMENT_MEAN and e_eos <= TOL_SEGMENT):
-            fail(f"fused_segment_decode C={C} S={S}: latent err {e_l:.4g} (mean {e_mean:.4g}), eos err {e_eos:.4g}")
+            fail(f"{tag}: latent err {e_l:.4g} (mean {e_mean:.4g}), eos err {e_eos:.4g}")
         errs["fused_segment_decode"] = max(errs["fused_segment_decode"], e_l, e_c)
-        print(f"fused_segment_decode C={C} S={S} bos={is_bos}: max latent err {e_l:.3g} (mean {e_mean:.3g}), "
-              f"eos err {e_eos:.3g}, cache err {e_c:.3g} (tol {TOL_SEGMENT}, mean {TOL_SEGMENT_MEAN})",
-              flush=True)
+        print(f"{tag}: max latent err {e_l:.3g} (mean {e_mean:.3g}), eos err {e_eos:.3g}, cache err {e_c:.3g} "
+              f"(tol {TOL_SEGMENT}, mean {TOL_SEGMENT_MEAN})", flush=True)
 
     with torch.no_grad():
         base = prefilled(C_TEST)
@@ -319,6 +341,8 @@ def main() -> None:
         compare_step(prefilled(512), False, 100)  # the engines grow to 512
         compare_segment(base, 8, True)
         compare_segment(base, 64, False)
+        compare_segment(base, 64, False, widx0=C_TEST - 20)  # widx0 + S > C - 1: appends clamp at C - 1
+        compare_segment(prefilled(C_OFF_CHUNK), 64, False)  # C off the attention chunk
         errs["batch_decode_attention"] = max(
             compare_batch_attention(torch, dev, batch_decode_attention, batch_decode_attention_reference,
                                     BATCH_CASES),
@@ -421,17 +445,22 @@ def main() -> None:
             device_ms(lambda: fused_backbone_step_reference(packed, latent, False, ks, vs, sp, 100, 100), 10),
         )
         noise = torch.zeros(64, ldim, device=dev)
-        timings["fused_segment_decode"] = tuple(
-            t / 64
-            for t in (
-                device_ms(lambda: fused_segment_decode(packed, flow_packed, latent, False, noise, ks, vs, sp, 100, 100), 5),
-                device_ms(lambda: fused_segment_decode_reference(packed, flow_packed, latent, False, noise, ks, vs, sp, 100, 100), 2),
-            )
-        )
-    for name, (ms, plain_ms) in timings.items():
-        print(f"{name}: {ms:.4f} ms/frame (CUDA kernel) vs {plain_ms:.4f} ms/frame (plain PyTorch), "
-              f"bound {bounds[name][0]:.4f} ms/frame ({bounds[name][1]}), C={c_main} warm, CUDA events [{card}]",
-              flush=True)
+        segment = lambda: fused_segment_decode(packed, flow_packed, latent, False, noise, ks, vs, sp, 100, 100)  # noqa: E731
+        seg_ms, seg_records = kernel_profile(torch, segment, 10, "segment_decode_kernel")
+        seg_event_ms = device_ms(segment, 5)
+        timings["fused_segment_decode"] = (seg_ms / 64, device_ms(
+            lambda: fused_segment_decode_reference(packed, flow_packed, latent, False, noise, ks, vs, sp, 100, 100),
+            2) / 64)
+    name = "fused_backbone_step"
+    print(f"{name}: {timings[name][0]:.4f} ms/frame (CUDA kernels) vs {timings[name][1]:.4f} ms/frame (plain "
+          f"PyTorch), bound {bounds[name][0]:.4f} ms/frame ({bounds[name][1]}), C={c_main} warm, CUDA events [{card}]",
+          flush=True)
+    name = "fused_segment_decode"
+    print(f"{name} S=64: {timings[name][0]:.4f} ms/frame of device time (CUDA kernel, one per call, torch.profiler "
+          f"mean of {seg_records} records of 10 calls, {bounds[name][0] / timings[name][0]:.0%} of the bound), "
+          f"{seg_event_ms / 64:.4f} ms/frame between CUDA events around 5 host calls, vs {timings[name][1]:.4f} "
+          f"ms/frame (plain PyTorch, CUDA events), bound {bounds[name][0]:.4f} ms/frame ({bounds[name][1]}), "
+          f"C={c_main} warm [{card}]", flush=True)
 
     walls = []
     for _ in range(RUNS_RTF):
@@ -455,6 +484,15 @@ def main() -> None:
     print(f"generate_audio_stream: time to first audio median {statistics.median(ttfas):.1f} ms "
           f"(min {ttfas[0]:.1f}, max {ttfas[-1]:.1f}; {RUNS_TTFA} warm runs), "
           f"{ttfa_cold * 1000:.1f} ms first call [{card}]", flush=True)
+    # Where one warm generate_audio's time goes: torch.profiler device busy
+    # time against the unprofiled wall (the profiler stretches host time).
+    _, busy_ms, by_kind, kernels = profiled_busy(torch, lambda: model.generate_audio(voice, TEXT))
+    wall_ms = statistics.median(walls) * 1e3
+    seg_ms = sum(e.self_device_time_total for e in kernels if "segment_decode_kernel" in e.key) / 1e3
+    print(f"generate_audio B=1 breakdown: device busy {busy_ms:.1f} ms in {sum(e.count for e in kernels)} kernel "
+          f"records ({seg_ms:.1f} ms in fused_segment_decode's kernel), unprofiled wall median {wall_ms:.1f} ms, "
+          f"idle share {1 - busy_ms / wall_ms:.2f}; busy ms by kind "
+          f"{json.dumps({k: round(v, 1) for k, v in by_kind.items()})} [{card}]", flush=True)
 
     # ---------------------------------------------------------------- phases 6-7
     batch = batch_path(torch, model, card, batch_decode_attention, fused_backbone_step, fused_segment_decode)

@@ -151,8 +151,12 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # (PttBackbone*, latent, is_bos, qpos, widx, h_out, eos_out, stream)
     "ptt_fused_backbone_step": ([_P, _P, _I, _I, _I, _P, _P, _P], _I),
-    # (PttBackbone*, PttFlow*, latent, is_bos, noise, S, qpos0, widx0, latents_out, eos_out, stream)
-    "ptt_fused_segment_decode": ([_P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P], _I),
+    # (PttBackbone*, PttFlow*, latent, is_bos, noise, S, qpos0, widx0, latents_out, eos_out, plan, grid,
+    #  chunk, chunks, slot_bytes, xs_off, xs2_off, sc_off, smem, part, stats, counter, stream)
+    "ptt_fused_segment_decode": (
+        [_P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P], _I),
+    # (smem, blocks_per_sm*)
+    "ptt_fused_segment_occupancy": ([_I, _P], _I),
     # (q, q_kind, q_sb, q_sh, k, v, kind, slot_pos, sp_stride, qpos, k_scale, v_scale, sc_stride,
     #  B, C, H, R, threads, stages, split, chunk, smem, out, stream)
     "ptt_batch_decode_attention": (

@@ -102,6 +102,24 @@ def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tens
     return torch.stack([xr * cos - xi * sin, xr * sin + xi * cos], dim=-1).reshape(x.shape)
 
 
+def attention_reference(q, k, v, kc, vc, valid):
+    """One query per head over the cache rows where `valid` [C] holds plus
+    the new row itself -> [H, d] float32. q, k, v [H, d] float32 (rotated,
+    bf16-exact); kc, vc [C, H, d]. Scores and sums in float32, the softmax
+    weights rounded to bf16 after the normalisation."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("chd,hd->hc", kc.float(), q) * scale
+    scores = torch.where(valid[None, :], scores, torch.full_like(scores, -1e9))
+    s_self = (q * k).sum(-1) * scale  # [H]
+    m = torch.maximum(scores.amax(-1), s_self)
+    e = torch.exp(scores - m[:, None])
+    e_self = torch.exp(s_self - m)
+    denom = e.sum(-1) + e_self
+    w = _bf16r(e / denom[:, None])
+    w_self = _bf16r(e_self / denom)
+    return torch.einsum("hc,chd->hd", w, vc.float()) + w_self[:, None] * v
+
+
 def backbone_frame_reference(packed, x_in, k_caches, v_caches, slot_pos, qpos: int, widx: int):
     """One frame from the input row x_in [ldim] (float32) -> (h [E], eos [1]);
     appends in place. The plain version of csrc/decode_common.cuh
@@ -115,7 +133,6 @@ def backbone_frame_reference(packed, x_in, k_caches, v_caches, slot_pos, qpos: i
     sp = slot_pos[0]
     rows = torch.arange(C, device=x.device)
     valid = (sp >= 0) & (sp < qpos) & (rows != widx)
-    scale = 1.0 / math.sqrt(d)
     for l in range(packed["wqkv"].shape[0]):
         ln = packed["ln"][l]
         h = layer_norm(x, ln[0], ln[1], eps=1e-5)
@@ -125,16 +142,7 @@ def backbone_frame_reference(packed, x_in, k_caches, v_caches, slot_pos, qpos: i
         k = _bf16r(_rotate(k, cos, sin))
         v = _bf16r(v)
         kc, vc = k_caches[l][0], v_caches[l][0]  # [C, H, d]
-        scores = torch.einsum("chd,hd->hc", kc.float(), q) * scale
-        scores = torch.where(valid[None, :], scores, torch.full_like(scores, -1e9))
-        s_self = (q * k).sum(-1) * scale  # [H]
-        m = torch.maximum(scores.amax(-1), s_self)
-        e = torch.exp(scores - m[:, None])
-        e_self = torch.exp(s_self - m)
-        denom = e.sum(-1) + e_self
-        w = _bf16r(e / denom[:, None])
-        w_self = _bf16r(e_self / denom)
-        attn = torch.einsum("hc,chd->hd", w, vc.float()) + w_self[:, None] * v
+        attn = attention_reference(q, k, v, kc, vc, valid)
         x = x + F.linear(_bf16r(attn.reshape(E)), packed["wo"][l].float()) * packed["so"][l]
         h = layer_norm(x, ln[2], ln[3], eps=1e-5)
         hid = F.gelu(F.linear(_bf16r(h), packed["w1"][l].float()) * packed["s1"][l])

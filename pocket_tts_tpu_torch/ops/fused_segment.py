@@ -1,9 +1,10 @@
-"""S autoregressive B=1 FlowLM frames as a hand-written CUDA kernel.
+"""S autoregressive B=1 FlowLM frames as one hand-written CUDA kernel launch.
 
 Replaces pocket_tts_tpu/ops/fused_segment.py:fused_segment_decode (the
-Pallas kernel `_seg_kernel`). Each frame is the fused_backbone_step frame
-followed by the flow-matching head — one Euler step (s=0, t=1) of
-SimpleMLPAdaLN with bf16 weights and float32 accumulation:
+Pallas kernel `_seg_kernel`, one Mosaic program on a grid of (S, 52)
+phases). Each frame is the fused_backbone_step frame followed by the
+flow-matching head — one Euler step (s=0, t=1) of SimpleMLPAdaLN with bf16
+weights and float32 accumulation:
 
     y      = cond(h) + tcomb              (tcomb: the timestep embedding of
                                            the step, precomputed at pack time)
@@ -15,22 +16,34 @@ SimpleMLPAdaLN with bf16 weights and float32 accumulation:
 and the latent feeds the next frame; later frames read the (k, v) rows
 earlier frames appended. Activations are rounded to bf16 into every product.
 
-What bounds it on the H100: per frame the 75.5 MB int8 backbone stream
-(BENCHMARKS.md "Round-5 residue") plus about 20 MB of bf16 flow weights.
-The flow GEMVs reuse the backbone's warp-per-row weight streaming
-(csrc/decode_common.cuh) with fused SiLU, AdaLN, gated-residual and Euler
-epilogues; the loop over the S frames runs in C (csrc/fused_segment.cu), one
-host call per segment.
+What bounds it on the H100: bytes. Per frame the 75.5 MB int8 backbone
+stream (BENCHMARKS.md "Round-5 residue") plus about 20 MB of bf16 flow
+weights and the valid KV rows, each weight byte used for one multiply-add
+(so no tensor-core rate applies): about 29 us a frame at 3.35 TB/s. The
+kernel (csrc/fused_segment.cu, csrc/persistent_decode.cuh) is one
+cooperative launch per call: one block per SM runs all S frames as 52
+phases a frame (the TPU grid's count) separated by grid barriers; every
+weight phase is spread over all blocks, whose rows a bulk copy brings into
+a ring in shared memory while the phase before runs; the attention is
+split over (head, chunk of cache rows) items in a scores phase and a PV
+phase that round exactly where the plain version does. In practice each
+phase waits on a few L2 round trips, which bound it more than the bytes
+(PERF.md). `segment_plan` is the work split: which weight rows and
+attention items each block owns, the phase list and the shared-memory
+layout; the kernel takes it as its arguments.
 
 `fused_segment_decode` launches the kernel for CUDA tensors (or raises) and
 runs `fused_segment_decode_reference` for CPU tensors.
 `fused_segment_decode.launches` counts kernel launches and `.frames` the
-frames they decoded.
+frames they decoded. `split_attention_reference` is the plain form of the
+kernel's two-phase attention.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 
 import torch
 import torch.nn.functional as F
@@ -108,6 +121,178 @@ def fused_segment_decode_reference(
     return torch.stack(latents), torch.cat(eos)
 
 
+# The kernel's work split (csrc/fused_segment.cu). Weight matrices of a frame,
+# in the order of the row table the kernel reads (enum Kind).
+KINDS = ("in", "qkv", "o", "ff1", "ff2", "cond", "flow_in", "ada", "w0", "w2", "final")
+THREADS = 512  # pd::kThreads
+VEC_PER_THREAD = 2  # pd::kVecPer: a prologue's vector holds at most THREADS * 2 floats
+MAX_CHUNKS = 8  # kMaxChunks: attention items per head
+MIN_CHUNK = 64  # fewest cache rows per attention item
+MAX_SHARED_BYTES = 232448  # an H100 block's opt-in shared memory (227 KB)
+# Static shared memory of a block: red, q/k/v rows, PV partials, and 1 KB
+# for the ring's two mbarriers, the phase descriptors, the row ranges and
+# the compiler's alignment.
+STATIC_SHARED_BYTES = (32 + 3 * 64 + THREADS // 32 * 64) * 4 + 1024
+BLOCK_QUOTA = 1 << 20  # GridBarrier::kBlockQuota: a launch waits on fewer barriers
+MAX_BLOCKS = 4096  # kEpoch / kBlockQuota
+
+
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _align128(n: int) -> int:
+    return -(-n // 128) * 128
+
+
+def weight_kinds(L: int, E: int, FF: int, ldim: int, MC: int, depth: int) -> dict:
+    """{kind: (rows, K, bytes per element)} of one frame's matrices (one
+    layer's or one flow block's where there are several)."""
+    na = (3 * depth + 2) * MC
+    return {
+        "in": (E, ldim, 1), "qkv": (3 * E, E, 1), "o": (E, E, 1), "ff1": (FF, E, 1), "ff2": (E, FF, 1),
+        "cond": (MC, E, 2), "flow_in": (MC, ldim, 2), "ada": (na, MC, 2), "w0": (MC, MC, 2), "w2": (MC, MC, 2),
+        "final": (ldim, MC, 2),
+    }
+
+
+def phase_list(L: int, depth: int) -> list[tuple[str, tuple[str, ...]]]:
+    """The phases of one frame, in order, each (name, weight kinds it reads);
+    a grid barrier follows each (the last of a launch excepted)."""
+    phases = [("in", ("in",))]
+    for l in range(L):
+        phases += [(f"qkv{l}", ("qkv",)), (f"scores{l}", ()), (f"pv{l}", ()), (f"o{l}", ("o",)),
+                   (f"ff1_{l}", ("ff1",)), (f"ff2_{l}", ("ff2",))]
+    phases += [("head", ("cond", "flow_in")), ("ada", ("ada",))]
+    for i in range(depth):
+        phases += [(f"w0_{i}", ("w0",)), (f"w2_{i}", ("w2",))]
+    return phases + [("final", ("final",))]
+
+
+def _even(n: int, blocks: int) -> list[int]:
+    return [b * n // blocks for b in range(blocks + 1)]
+
+
+def segment_plan(L: int, E: int, H: int, FF: int, ldim: int, MC: int, depth: int, C: int, blocks: int) -> dict:
+    """The work split of one kernel launch over `blocks` blocks.
+
+    rows[kind]: block b owns rows [rows[kind][b], rows[kind][b + 1]) of that
+    matrix in every phase that reads it (an even split). Attention items are
+    (head, chunk): chunk c of head h covers cache rows [c * chunk,
+    min(C, (c + 1) * chunk)); item h * chunks + c belongs to block b when
+    items[b] <= it < items[b + 1], in the scores phase and in the PV phase,
+    which reads the scores the block kept. A chunk is a multiple of 32 rows,
+    at least MIN_CHUNK, sized for at most MAX_CHUNKS (and blocks / H) items
+    a head. Shared memory: the weight ring, two slots of slot_bytes at 0
+    (weight phase j's rows, block_bytes of each matrix it reads, are copied
+    into slot j % 2 while weight phase j - 1 runs), the bf16 activation
+    (xs_off), the second one of the head phase (xs2_off) and each item's
+    scores plus its self score (sc_off, chunk + 4 floats an item); `table`
+    is the int32 row table the kernel takes."""
+    target = max(1, min(MAX_CHUNKS, blocks // H))
+    chunk = max(MIN_CHUNK, -(-(-(-C // target)) // 32) * 32)
+    chunks = -(-C // chunk)
+    kinds = weight_kinds(L, E, FF, ldim, MC, depth)
+    rows = {k: _even(kinds[k][0], blocks) for k in KINDS}
+    items = _even(H * chunks, blocks)
+    max_items = max(b - a for a, b in zip(items, items[1:]))
+    phases = phase_list(L, depth)
+    # A ring slot holds the most bytes a block copies for one weight phase:
+    # its rows of each matrix the phase reads, each matrix 128-byte aligned.
+    block_bytes = {k: max(b - a for a, b in zip(rows[k], rows[k][1:])) * kinds[k][1] * kinds[k][2] for k in KINDS}
+    slot_bytes = max(sum(_align128(block_bytes[k]) for k in ks) for _, ks in phases if ks)
+    xs_off = 2 * slot_bytes
+    xs2_off = xs_off + _align16(max(E, FF, MC, ldim) * 2)
+    sc_off = xs2_off + _align16(ldim * 2)
+    shared = sc_off + max_items * (chunk + 4) * 4
+    if shared + STATIC_SHARED_BYTES > MAX_SHARED_BYTES:
+        raise ValueError(f"C={C}, {blocks} blocks: {shared + STATIC_SHARED_BYTES} bytes of shared memory per block "
+                         f"(a weight ring of two {slot_bytes}-byte slots); the H100 allows {MAX_SHARED_BYTES}")
+    return {
+        "blocks": blocks, "rows": rows, "kinds": kinds, "chunk": chunk, "chunks": chunks, "items": items,
+        "max_items": max_items, "phases": [name for name, _ in phases], "barriers_per_frame": len(phases),
+        "block_bytes": block_bytes, "slot_bytes": slot_bytes, "xs_off": xs_off, "xs2_off": xs2_off,
+        "sc_off": sc_off, "shared_bytes": shared,
+        "table": [r for k in KINDS for r in rows[k]] + items,
+    }
+
+
+def split_attention_reference(q, k, v, kc, vc, valid, chunk: int):
+    """The kernel's two-phase attention in plain PyTorch (same inputs and
+    result as fused_backbone.attention_reference): chunk by chunk of the
+    cache rows, the scores of the valid rows, the chunk max (chunk 0 with
+    the self score) and sum of exp; then the global max and denominator
+    combined over the chunks in order, the weights rounded to bf16, and the
+    chunks' partial outputs (chunk 0's with the self term) summed in order."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    C = kc.shape[0]
+    s_self = (q * k).sum(-1) * scale
+    parts = []
+    for c0 in range(0, C, chunk):
+        ok = valid[c0 : c0 + chunk]
+        sc = torch.einsum("chd,hd->hc", kc[c0 : c0 + chunk].float(), q) * scale
+        sc = torch.where(ok[None, :], sc, torch.full_like(sc, -math.inf))
+        m = sc.amax(-1)
+        if c0 == 0:
+            m = torch.maximum(m, s_self)
+        lsum = torch.where(ok[None, :], torch.exp(sc - m[:, None]), torch.zeros_like(sc)).sum(-1)
+        if c0 == 0:
+            lsum = lsum + torch.exp(s_self - m)
+        parts.append((c0, ok, sc, m, lsum))
+    big = torch.stack([m for *_, m, _ in parts]).amax(0)
+    denom = torch.zeros_like(big)
+    for *_, m, lsum in parts:
+        denom = denom + torch.where(lsum > 0, lsum * torch.exp(m - big), torch.zeros_like(lsum))
+    out = torch.zeros_like(q)
+    for c0, ok, sc, _, _ in parts:
+        w = torch.where(ok[None, :], _bf16r(torch.exp(sc - big[:, None]) / denom[:, None]), torch.zeros_like(sc))
+        part = torch.einsum("hc,chd->hd", w, vc[c0 : c0 + chunk].float())
+        if c0 == 0:
+            part = part + _bf16r(torch.exp(s_self - big) / denom)[:, None] * v
+        out = out + part
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(device_index: int, L, E, H, FF, ldim, MC, depth, C):
+    """(plan, its row table on the device) of a launch on that device: the
+    grid is every SM times the blocks an SM holds at the plan's shared
+    memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor), all resident,
+    as a cooperative launch needs; plan["blocks_per_sm"] says how many."""
+    from pocket_tts_tpu_torch.ops import _cuda
+
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    plan = segment_plan(L, E, H, FF, ldim, MC, depth, C, sms)
+    per_sm = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = _cuda.library("fused_segment").ptt_fused_segment_occupancy(
+            plan["shared_bytes"], ctypes.byref(per_sm))
+    if err or per_sm.value < 1:
+        raise RuntimeError(f"fused_segment_decode: no block fits an SM at {plan['shared_bytes']} bytes of shared "
+                           f"memory (CUDA error {err})")
+    if per_sm.value > 1:
+        plan = segment_plan(L, E, H, FF, ldim, MC, depth, C, sms * per_sm.value)
+    plan["blocks_per_sm"] = per_sm.value
+    if plan["blocks"] > MAX_BLOCKS:
+        raise ValueError(f"fused_segment_decode: {plan['blocks']} blocks; the grid barrier counts at most {MAX_BLOCKS}")
+    table = torch.tensor(plan["table"], dtype=torch.int32, device=torch.device("cuda", device_index))
+    return plan, table
+
+
+_COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _barrier_counter(device) -> torch.Tensor:
+    """The grid barrier's arrival counter of the current stream on `device`
+    (zeroed once; each launch adds a whole epoch, so it is never reset)."""
+    from pocket_tts_tpu_torch.ops import _cuda
+
+    key = (device.index, _cuda.stream_ptr())
+    if key not in _COUNTERS:
+        _COUNTERS[key] = torch.zeros(1, dtype=torch.int64, device=device)
+    return _COUNTERS[key]
+
+
 def _flow_args(fp, E: int, ldim: int, device):
     from pocket_tts_tpu_torch.ops import _cuda
 
@@ -159,17 +344,30 @@ def fused_segment_decode(
     S = noise.shape[0]
     _cuda.check_cuda_tensor("latent", latent, torch.float32, (1, args.ldim))
     _cuda.check_cuda_tensor("noise", noise, torch.float32, (S, args.ldim))
-    latents = torch.empty(S, args.ldim, dtype=torch.float32, device=slot_pos.device)
-    eos = torch.empty(S, dtype=torch.float32, device=slot_pos.device)
+    limit = VEC_PER_THREAD * THREADS
+    if max(args.E, fargs.MC, args.ldim) > limit or not 0 < S * len(phase_list(args.L, fargs.depth)) < BLOCK_QUOTA:
+        raise ValueError(f"the CUDA segment takes E, the flow width and ldim up to {limit} and 1 <= S frames "
+                         f"below {BLOCK_QUOTA} barriers; got E={args.E} MC={fargs.MC} ldim={args.ldim} S={S}")
+    dev = slot_pos.device
+    plan, table = launch_plan(dev.index if dev.index is not None else torch.cuda.current_device(), args.L, args.E,
+                          args.H, args.FF, args.ldim, fargs.MC, fargs.depth, args.C)
+    n_items = plan["items"][-1]
+    part = torch.empty(n_items * 64, dtype=torch.float32, device=dev)
+    stats = torch.empty(n_items * 2, dtype=torch.float32, device=dev)
+    latents = torch.empty(S, args.ldim, dtype=torch.float32, device=dev)
+    eos = torch.empty(S, dtype=torch.float32, device=dev)
     err = _cuda.library("fused_segment").ptt_fused_segment_decode(
         ctypes.byref(args), ctypes.byref(fargs), latent.data_ptr(), int(bool(is_bos)), noise.data_ptr(),
-        S, int(qpos0), int(widx0), latents.data_ptr(), eos.data_ptr(), _cuda.stream_ptr(),
+        S, int(qpos0), int(widx0), latents.data_ptr(), eos.data_ptr(), table.data_ptr(), plan["blocks"],
+        plan["chunk"], plan["chunks"], plan["slot_bytes"], plan["xs_off"], plan["xs2_off"], plan["sc_off"],
+        plan["shared_bytes"], part.data_ptr(), stats.data_ptr(), _barrier_counter(dev).data_ptr(),
+        _cuda.stream_ptr(),
     )
+    if err:
+        raise RuntimeError(f"fused_segment_decode: CUDA error {err} (cooperative launch of {plan['blocks']} blocks)")
     if _cuda.count_launch(fused_segment_decode):
         fused_segment_decode.frames += S
-    if err:
-        raise RuntimeError(f"fused_segment_decode: CUDA error {err}")
-    # scratch / fscratch stay referenced until here (see fused_backbone_step).
+    # scratch, fscratch, part and stats stay referenced until here (see fused_backbone_step).
     return latents, eos
 
 

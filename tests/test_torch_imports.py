@@ -73,7 +73,8 @@ def _c_entry_points():
     return found
 
 
-@pytest.mark.parametrize("name", ["ptt_fused_backbone_step", "ptt_fused_segment_decode", "ptt_batch_decode_attention",
+@pytest.mark.parametrize("name", ["ptt_fused_backbone_step", "ptt_fused_segment_decode", "ptt_fused_segment_occupancy",
+                                  "ptt_batch_decode_attention",
                                   "ptt_row_write", "ptt_head_slice_weighted_sum", "ptt_stream_read",
                                   "ptt_kv_read_sum"])
 def test_ctypes_signature_matches_the_c_entry_point(name):
