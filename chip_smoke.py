@@ -8,11 +8,14 @@ Phases (any failure exits non-zero and prints no result line):
   1. card name and power limit (nvidia-smi); CUDA must be available;
   2. build the five CUDA sources from pocket_tts_tpu_torch/csrc with nvcc
      (sm_90a), all at once, and print each kernel's registers, shared
-     memory and spills, and fused_segment_decode's cooperative grid (blocks
-     per SM) and work split at b6369a24 width;
+     memory and spills, and the cooperative grid (blocks per SM), phase
+     count and work split of fused_backbone_step and fused_segment_decode
+     at b6369a24 width;
   3. hold each kernel against its plain PyTorch version on the card, at the
      b6369a24 geometry with a prefilled C=256 cache: fused_backbone_step for
-     a BOS and a non-BOS frame (and at C=512), fused_segment_decode at S=8
+     a BOS and a non-BOS frame, with the write index clamped (widx = C - 1
+     and beyond), at C=512 and at C=224, off its attention chunk (h, the EOS
+     logit, full updated caches, slot_pos), fused_segment_decode at S=8
      with BOS, at S=64, at S=64 with the write index clamped (widx0 + S >
      C - 1) and at S=64 with C=224, off its attention chunk (outputs, full
      updated caches, slot_pos); batch_decode_attention
@@ -32,8 +35,9 @@ Phases (any failure exits non-zero and prints no result line):
   5. at the cache capacity the main path decoded at: each kernel against
      its plain version once more, then warm timings beside the card's name
      and power limit: each kernel and its plain version (fused_segment_decode
-     at S=64 by torch.profiler kernel time, one kernel per call, beside the
-     wall between CUDA events; fused_backbone_step by CUDA events), generate_audio's
+     at S=64 and fused_backbone_step, there and at C=1024, by torch.profiler
+     kernel time, one kernel per call, beside the wall between CUDA events;
+     plain versions by CUDA events), generate_audio's
      real-time factor and generate_audio_stream's time to first audio
      (medians of several warm runs), and one warm generate_audio under
      torch.profiler (device busy time, kernel records, idle share against
@@ -137,7 +141,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 TEXT = "The quick brown fox jumps over the lazy dog. It was a bright cold day in April."
 C_TEST = 256  # cache capacity of the first kernel comparisons (two 128-slot buckets)
-C_OFF_CHUNK = 224  # the 200-row engine's capacity: 3.5 attention chunks of fused_segment_decode
+C_OFF_CHUNK = 224  # the 200-row engine's capacity: 3.5 attention chunks of the B=1 kernels
 RUNS_RTF, RUNS_TTFA = 5, 9  # warm runs behind each end-to-end median
 RUNS_BATCH_RTF = 3  # warm generate_audio_batch runs behind the B=64 median
 BATCH_WORDS = (
@@ -255,17 +259,18 @@ def main() -> None:
             if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"  ptxas[{name}] {line.strip()}")
     from pocket_tts_tpu_torch.config.schema import builtin_config_path, load_config
-    from pocket_tts_tpu_torch.ops.fused_segment import launch_plan
+    from pocket_tts_tpu_torch.ops.persistent import launch_plan
 
     cfg = load_config(builtin_config_path("b6369a24"))
     t = cfg.flow_lm.transformer
     seg_dims = (t.num_layers, t.d_model, t.num_heads, t.d_model * t.hidden_scale, cfg.mimi.quantizer.dimension,
                 cfg.flow_lm.flow.dim, cfg.flow_lm.flow.depth)
-    plan, _ = launch_plan(torch.cuda.current_device(), *seg_dims, C_TEST)
-    print(f"fused_segment_decode: one cooperative launch of {plan['blocks']} blocks ({plan['blocks_per_sm']} per SM "
-          f"of {torch.cuda.get_device_properties(0).multi_processor_count}) x 512 threads, "
-          f"{plan['shared_bytes']} bytes of dynamic shared memory, {plan['barriers_per_frame']} phases a frame, "
-          f"attention in {plan['chunks']} chunks of {plan['chunk']} rows a head at C={C_TEST}", flush=True)
+    for name, dims in (("fused_backbone_step", (*seg_dims[:5], None, None)), ("fused_segment_decode", seg_dims)):
+        plan, _ = launch_plan(torch.cuda.current_device(), *dims, C_TEST)
+        print(f"{name}: one cooperative launch of {plan['blocks']} blocks ({plan['blocks_per_sm']} per SM of "
+              f"{torch.cuda.get_device_properties(0).multi_processor_count}) x 512 threads, {plan['shared_bytes']} "
+              f"bytes of dynamic shared memory, {plan['barriers_per_frame']} phases a frame, attention in "
+              f"{plan['chunks']} chunks of {plan['chunk']} rows a head at C={C_TEST}", flush=True)
 
     # ---------------------------------------------------------------- phase 3
     t0 = time.monotonic()
@@ -303,19 +308,21 @@ def main() -> None:
     errs = {"fused_backbone_step": 0.0, "fused_segment_decode": 0.0}
     latent = torch.randn(1, ldim, generator=gen).to(dev)
 
-    def compare_step(base, is_bos, qpos):
+    def compare_step(base, is_bos, qpos, widx=None):
         C = base["transformer"]["layers"][0]["k"].shape[1]
+        widx = qpos if widx is None else widx
         sk, sr = copy.deepcopy(base), copy.deepcopy(base)
-        hk, ek = fused_backbone_step(packed, latent, is_bos, *cache_args(sk), qpos, qpos)
-        hr, er = fused_backbone_step_reference(packed, latent, is_bos, *cache_args(sr), qpos, qpos)
+        hk, ek = fused_backbone_step(packed, latent, is_bos, *cache_args(sk), qpos, widx)
+        hr, er = fused_backbone_step_reference(packed, latent, is_bos, *cache_args(sr), qpos, widx)
         torch.cuda.synchronize()
+        tag = f"fused_backbone_step C={C} bos={is_bos} widx={widx}"
         e_h, e_eos = max_err(hk, hr), max_err(ek, er)
-        e_c = compare_states(f"fused_backbone_step C={C} bos={is_bos}", sk, sr, TOL_STEP)
+        e_c = compare_states(tag, sk, sr, TOL_STEP)
         if not (e_h <= TOL_STEP and e_eos <= TOL_EOS):
-            fail(f"fused_backbone_step C={C} bos={is_bos}: h err {e_h:.4g}, eos err {e_eos:.4g}")
+            fail(f"{tag}: h err {e_h:.4g}, eos err {e_eos:.4g}")
         errs["fused_backbone_step"] = max(errs["fused_backbone_step"], e_h, e_c)
-        print(f"fused_backbone_step C={C} bos={is_bos}: max|h| err {e_h:.3g}, eos err {e_eos:.3g}, "
-              f"cache err {e_c:.3g} (tol {TOL_STEP}; eos {TOL_EOS})", flush=True)
+        print(f"{tag}: max|h| err {e_h:.3g}, eos err {e_eos:.3g}, cache err {e_c:.3g} (tol {TOL_STEP}; "
+              f"eos {TOL_EOS})", flush=True)
 
     def compare_segment(base, S, is_bos, widx0=100):
         C = base["transformer"]["layers"][0]["k"].shape[1]
@@ -338,7 +345,10 @@ def main() -> None:
         base = prefilled(C_TEST)
         compare_step(base, True, 100)
         compare_step(base, False, 101)
+        compare_step(base, False, 101, widx=C_TEST - 1)  # the write index clamped: appends land at C - 1
+        compare_step(base, False, 101, widx=C_TEST + 7)
         compare_step(prefilled(512), False, 100)  # the engines grow to 512
+        compare_step(prefilled(C_OFF_CHUNK), False, 100)  # C off the attention chunk
         compare_segment(base, 8, True)
         compare_segment(base, 64, False)
         compare_segment(base, 64, False, widx0=C_TEST - 20)  # widx0 + S > C - 1: appends clamp at C - 1
@@ -351,7 +361,7 @@ def main() -> None:
                                     q_dtype=torch.bfloat16),
             compare_nan_holes(torch, dev, batch_decode_attention, batch_decode_attention_reference),
         )
-    step_caps, batch_caps = {C_TEST, 512}, {(B, C) for B, C, _ in BATCH_CASES}  # compared so far
+    step_caps, batch_caps = {C_TEST, 512, C_OFF_CHUNK}, {(B, C) for B, C, _ in BATCH_CASES}  # compared so far
 
     # ---------------------------------------------------------------- phase 4
     voice = model.get_state_for_audio_prompt("alba")
@@ -440,10 +450,20 @@ def main() -> None:
             "fused_segment_decode": bound(w_backbone + w_flow + (valid_rows + 31.5) * row_bytes,
                                           2 * (n_weights + n_flow)),  # mean over 64 frames
         }
+        step = lambda: fused_backbone_step(packed, latent, False, ks, vs, sp, 100, 100)  # noqa: E731
+        step_ms, step_records = kernel_profile(torch, step, 20, "backbone_step_kernel")
+        step_event_ms = device_ms(step, 50)
         timings["fused_backbone_step"] = (
-            device_ms(lambda: fused_backbone_step(packed, latent, False, ks, vs, sp, 100, 100), 50),
-            device_ms(lambda: fused_backbone_step_reference(packed, latent, False, ks, vs, sp, 100, 100), 10),
-        )
+            step_ms, device_ms(lambda: fused_backbone_step_reference(packed, latent, False, ks, vs, sp, 100, 100), 10))
+        # At C=1024 the attention reads 8 chunks of 128 rows a head.
+        st_long = prefilled(1024)
+        compare_step(st_long, False, 100)
+        step_caps.add(1024)
+        ks_l, vs_l, sp_l = cache_args(st_long)
+        step_long = lambda: fused_backbone_step(packed, latent, False, ks_l, vs_l, sp_l, 100, 100)  # noqa: E731
+        long_ms, long_records = kernel_profile(torch, step_long, 20, "backbone_step_kernel")
+        long_event_ms = device_ms(step_long, 50)
+        long_bound = bound(w_backbone + int(((sp_l >= 0) & (sp_l < 100)).sum()) * row_bytes, 2 * n_weights)
         noise = torch.zeros(64, ldim, device=dev)
         segment = lambda: fused_segment_decode(packed, flow_packed, latent, False, noise, ks, vs, sp, 100, 100)  # noqa: E731
         seg_ms, seg_records = kernel_profile(torch, segment, 10, "segment_decode_kernel")
@@ -452,9 +472,15 @@ def main() -> None:
             lambda: fused_segment_decode_reference(packed, flow_packed, latent, False, noise, ks, vs, sp, 100, 100),
             2) / 64)
     name = "fused_backbone_step"
-    print(f"{name}: {timings[name][0]:.4f} ms/frame (CUDA kernels) vs {timings[name][1]:.4f} ms/frame (plain "
-          f"PyTorch), bound {bounds[name][0]:.4f} ms/frame ({bounds[name][1]}), C={c_main} warm, CUDA events [{card}]",
-          flush=True)
+    print(f"{name}: {timings[name][0]:.4f} ms/frame of device time (CUDA kernel, one per call, torch.profiler mean "
+          f"of {step_records} records of 20 calls, {bounds[name][0] / timings[name][0]:.0%} of the bound), "
+          f"{step_event_ms:.4f} ms/frame between CUDA events around 50 host calls, vs {timings[name][1]:.4f} "
+          f"ms/frame (plain PyTorch, CUDA events), bound {bounds[name][0]:.4f} ms/frame ({bounds[name][1]}), "
+          f"C={c_main} warm [{card}]", flush=True)
+    print(f"{name} C=1024: {long_ms:.4f} ms/frame of device time (torch.profiler mean of {long_records} records of "
+          f"20 calls, {long_bound[0] / long_ms:.0%} of the bound), {long_event_ms:.4f} ms/frame between CUDA events, "
+          f"bound {long_bound[0]:.4f} ms/frame ({long_bound[1]}); {long_ms / timings[name][0]:.3f} x its time at "
+          f"C={c_main} [{card}]", flush=True)
     name = "fused_segment_decode"
     print(f"{name} S=64: {timings[name][0]:.4f} ms/frame of device time (CUDA kernel, one per call, torch.profiler "
           f"mean of {seg_records} records of 10 calls, {bounds[name][0] / timings[name][0]:.0%} of the bound), "
@@ -489,8 +515,11 @@ def main() -> None:
     _, busy_ms, by_kind, kernels = profiled_busy(torch, lambda: model.generate_audio(voice, TEXT))
     wall_ms = statistics.median(walls) * 1e3
     seg_ms = sum(e.self_device_time_total for e in kernels if "segment_decode_kernel" in e.key) / 1e3
+    step_busy = [e for e in kernels if "backbone_step_kernel" in e.key]
     print(f"generate_audio B=1 breakdown: device busy {busy_ms:.1f} ms in {sum(e.count for e in kernels)} kernel "
-          f"records ({seg_ms:.1f} ms in fused_segment_decode's kernel), unprofiled wall median {wall_ms:.1f} ms, "
+          f"records ({seg_ms:.1f} ms in fused_segment_decode's kernel, "
+          f"{sum(e.self_device_time_total for e in step_busy) / 1e3:.1f} ms in {sum(e.count for e in step_busy)} "
+          f"records of fused_backbone_step's), unprofiled wall median {wall_ms:.1f} ms, "
           f"idle share {1 - busy_ms / wall_ms:.2f}; busy ms by kind "
           f"{json.dumps({k: round(v, 1) for k, v in by_kind.items()})} [{card}]", flush=True)
 

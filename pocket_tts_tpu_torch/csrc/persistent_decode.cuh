@@ -1,7 +1,7 @@
 // Building blocks of a persistent B=1 decode kernel: one cooperative launch
 // whose blocks (one per SM) walk a fixed list of phases separated by grid
-// barriers. Used by fused_segment.cu; written so that a one-frame kernel can
-// take the same pieces.
+// barriers. Both B=1 kernels (fused_backbone.cu, fused_segment.cu) are built
+// from these pieces and from the backbone frame of persistent_frame.cuh.
 //
 //  - GridBarrier: a monotonic 64-bit arrival counter in device memory that the
 //    caller owns (zeroed once, never reset). Each launch adds exactly kEpoch
@@ -21,8 +21,8 @@
 //    tensor map) that complete on an mbarrier: a block's rows of one matrix
 //    are contiguous in device memory, so one copy per matrix brings them.
 //  - gemv: one warp per output row over the block's share of the rows, read
-//    from shared memory, 16-byte weight slices per lane in gemv_kernel's order
-//    (lane, lane + 32, ...; warp_sum at the end). The prologue (Pro) builds
+//    from shared memory, 16-byte weight slices per lane (lane, lane + 32,
+//    ...; warp_sum at the end). The prologue (Pro) builds
 //    the bf16 activation from a vector written during the launch; the
 //    epilogue operands of the warp's rows (scale, bias, residual, gate) are
 //    loaded before it, one row per lane, so one L2 round trip serves both.
@@ -235,7 +235,7 @@ __device__ __forceinline__ void prologue(const Pro& p, int K, bf16* xs, float* r
       }
       break;
     }
-    case P_NORM: {  // LayerNorm statistics in two passes, as decode_common.cuh's ln_stats
+    case P_NORM: {  // LayerNorm statistics in two passes, as ops/norms.layer_norm
       float v[kVecPer], sh[kVecPer], sc[kVecPer];
       load_vec(p.x, K, v);
       if (p.shift) {
@@ -276,7 +276,7 @@ __device__ __forceinline__ void prologue(const Pro& p, int K, bf16* xs, float* r
 }
 
 // ---------------------------------------------------------------- epilogues
-// v = acc [* scale[r]] [+ bias[r]] [+ bias2[r]], then by mode (decode_common.cuh's epilogue).
+// v = acc [* scale[r]] [+ bias[r]] [+ bias2[r]], then by mode.
 enum EpiMode { E_STORE = 0, E_ADD = 1, E_GELU_BF16 = 2, E_SILU = 3, E_FINAL = 4 };
 
 struct Epi {

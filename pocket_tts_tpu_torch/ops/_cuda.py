@@ -127,7 +127,7 @@ class PttBackbone(ctypes.Structure):
         ("eos_w", _P), ("eos_b", _P),
         ("k", _P * MAX_LAYERS), ("v", _P * MAX_LAYERS),
         ("slot_pos", _P),
-        ("x", _P), ("qkv", _P), ("attn", _P), ("hidden", _P), ("h", _P),
+        ("x", _P), ("qkv", _P), ("hidden", _P),
         ("L", ctypes.c_int), ("E", ctypes.c_int), ("H", ctypes.c_int),
         ("FF", ctypes.c_int), ("ldim", ctypes.c_int), ("C", ctypes.c_int),
         ("rope_coef", ctypes.c_float),
@@ -149,8 +149,11 @@ class PttFlow(ctypes.Structure):
 _I = ctypes.c_int
 # C entry points: (argtypes, restype); each returns a cudaError_t.
 _SIGNATURES = {
-    # (PttBackbone*, latent, is_bos, qpos, widx, h_out, eos_out, stream)
-    "ptt_fused_backbone_step": ([_P, _P, _I, _I, _I, _P, _P, _P], _I),
+    # (PttBackbone*, latent, is_bos, qpos, widx, h_out, eos_out, plan, grid, chunk, chunks, slot_bytes, xs_off,
+    #  sc_off, smem, part, stats, counter, stream)
+    "ptt_fused_backbone_step": ([_P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P], _I),
+    # (smem, blocks_per_sm*)
+    "ptt_fused_backbone_occupancy": ([_I, _P], _I),
     # (PttBackbone*, PttFlow*, latent, is_bos, noise, S, qpos0, widx0, latents_out, eos_out, plan, grid,
     #  chunk, chunks, slot_bytes, xs_off, xs2_off, sc_off, smem, part, stats, counter, stream)
     "ptt_fused_segment_decode": (

@@ -18,16 +18,25 @@ with float32 accumulation and a per-output scale, bf16 q/k/v and softmax
 weights in attention, a bf16 FF hidden, exact erf.
 
 What bounds it on the H100: the 75.5 MB of int8 backbone weights read once
-per frame (BENCHMARKS.md "Round-5 residue"), about 23 us at 3.35 TB/s. The
-kernel (csrc/fused_backbone.cu, csrc/decode_common.cuh) streams each weight
-matrix with one warp per output row over hundreds of blocks, keeps the
-activation in shared memory and fuses LN, scale, GELU and residual into the
-GEMV prologue/epilogue; the 32 launches of a frame come from one host call.
+per frame (BENCHMARKS.md "Round-5 residue"), about 23 us at 3.35 TB/s; each
+weight byte meets one multiply-add, so no tensor-core rate applies. The
+kernel (csrc/fused_backbone.cu, built from csrc/persistent_frame.cuh and
+csrc/persistent_decode.cuh) is one cooperative launch per call, the
+segment kernel's frame without the flow head: one block per SM walks 6 L + 2
+phases (the input projection; per layer qkv, scores, pv, o, ff1, ff2; the
+head) behind grid barriers; every weight phase spreads its rows over all
+blocks, which bulk-copy them into a shared-memory ring while the phase
+before runs; the attention is split over (head, chunk of cache rows) items
+(`split_attention_reference` in ops/fused_segment.py is its plain form); in
+the head one block computes out_norm, the EOS logit and the slot_pos
+append. In practice each phase waits on a few L2 round trips, which bound
+it more than the bytes (PERF.md). `ops/persistent.segment_plan` (with no
+flow head) is the work split.
 
 `fused_backbone_step` launches the kernel for CUDA tensors (or raises) and
 runs `fused_backbone_step_reference`, the plain PyTorch version with the same
 contract, for CPU tensors. `fused_backbone_step.launches` counts kernel
-launches.
+launches, one per call.
 """
 
 from __future__ import annotations
@@ -39,6 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from pocket_tts_tpu_torch.ops.norms import layer_norm
+from pocket_tts_tpu_torch.ops.persistent import THREADS, VEC_PER_THREAD, barrier_counter, launch_plan
 
 
 def _bf16r(x: torch.Tensor) -> torch.Tensor:
@@ -122,8 +132,8 @@ def attention_reference(q, k, v, kc, vc, valid):
 
 def backbone_frame_reference(packed, x_in, k_caches, v_caches, slot_pos, qpos: int, widx: int):
     """One frame from the input row x_in [ldim] (float32) -> (h [E], eos [1]);
-    appends in place. The plain version of csrc/decode_common.cuh
-    backbone_frame."""
+    appends in place. The plain version of the backbone phases of a frame of
+    the persistent kernels (csrc/persistent_frame.cuh)."""
     H = packed["num_heads"]
     E = packed["win"].shape[0]
     d = E // H
@@ -197,9 +207,7 @@ def _backbone_args(packed, k_caches, v_caches, slot_pos):
     scratch = {
         "x": torch.empty(E, dtype=f32, device=dev),
         "qkv": torch.empty(3 * E, dtype=f32, device=dev),
-        "attn": torch.empty(E, dtype=f32, device=dev),
         "hidden": torch.empty(FF, dtype=torch.bfloat16, device=dev),
-        "h": torch.empty(E, dtype=f32, device=dev),
     }
     args = _cuda.PttBackbone()
     for name in ("wqkv", "sqkv", "wo", "so", "w1", "s1", "w2", "s2", "ln", "win", "s_in", "bos",
@@ -228,18 +236,30 @@ def fused_backbone_step(packed, latent, is_bos: bool, k_caches, v_caches, slot_p
 
     args, scratch = _backbone_args(packed, k_caches, v_caches, slot_pos)
     _cuda.check_cuda_tensor("latent", latent, torch.float32, (1, args.ldim))
+    limit = VEC_PER_THREAD * THREADS
+    if max(args.E, args.ldim) > limit:
+        raise ValueError(f"the CUDA backbone takes E and ldim up to {limit}; got E={args.E} ldim={args.ldim}")
     widx = min(int(widx), args.C - 1)
-    h = torch.empty(1, args.E, dtype=torch.float32, device=slot_pos.device)
-    eos = torch.empty(1, dtype=torch.float32, device=slot_pos.device)
+    dev = slot_pos.device
+    plan, table = launch_plan(dev.index if dev.index is not None else torch.cuda.current_device(), args.L, args.E,
+                              args.H, args.FF, args.ldim, None, None, args.C)
+    n_items = plan["items"][-1]
+    part = torch.empty(n_items * 64, dtype=torch.float32, device=dev)
+    stats = torch.empty(n_items * 2, dtype=torch.float32, device=dev)
+    h = torch.empty(1, args.E, dtype=torch.float32, device=dev)
+    eos = torch.empty(1, dtype=torch.float32, device=dev)
     err = _cuda.library("fused_backbone").ptt_fused_backbone_step(
-        ctypes.byref(args), latent.data_ptr(), int(bool(is_bos)), int(qpos), widx,
-        h.data_ptr(), eos.data_ptr(), _cuda.stream_ptr(),
+        ctypes.byref(args), latent.data_ptr(), int(bool(is_bos)), int(qpos), widx, h.data_ptr(), eos.data_ptr(),
+        table.data_ptr(), plan["blocks"], plan["chunk"], plan["chunks"], plan["slot_bytes"], plan["xs_off"],
+        plan["sc_off"], plan["shared_bytes"], part.data_ptr(), stats.data_ptr(), barrier_counter(dev).data_ptr(),
+        _cuda.stream_ptr(),
     )
-    _cuda.count_launch(fused_backbone_step)
     if err:
-        raise RuntimeError(f"fused_backbone_step: CUDA error {err}")
-    # `scratch` stays referenced until here; later reuse of its memory is
-    # ordered after the kernels on the same stream by the caching allocator.
+        raise RuntimeError(f"fused_backbone_step: CUDA error {err} (cooperative launch of {plan['blocks']} blocks)")
+    _cuda.count_launch(fused_backbone_step)
+    # `scratch`, `part` and `stats` stay referenced until here; later reuse of
+    # their memory is ordered after the kernel on the same stream by the
+    # caching allocator.
     return h, eos
 
 

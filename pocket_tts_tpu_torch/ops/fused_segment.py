@@ -28,9 +28,9 @@ a ring in shared memory while the phase before runs; the attention is
 split over (head, chunk of cache rows) items in a scores phase and a PV
 phase that round exactly where the plain version does. In practice each
 phase waits on a few L2 round trips, which bound it more than the bytes
-(PERF.md). `segment_plan` is the work split: which weight rows and
-attention items each block owns, the phase list and the shared-memory
-layout; the kernel takes it as its arguments.
+(PERF.md). `ops/persistent.segment_plan` is the work split: which weight
+rows and attention items each block owns, the phase list and the
+shared-memory layout; the kernel takes it as its arguments.
 
 `fused_segment_decode` launches the kernel for CUDA tensors (or raises) and
 runs `fused_segment_decode_reference` for CPU tensors.
@@ -42,7 +42,6 @@ kernel's two-phase attention.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 
 import torch
@@ -51,6 +50,23 @@ import torch.nn.functional as F
 from pocket_tts_tpu_torch.ops.adaln import SimpleMLPAdaLN
 from pocket_tts_tpu_torch.ops.fused_backbone import _backbone_args, _bf16r, backbone_frame_reference
 from pocket_tts_tpu_torch.ops.norms import layer_norm
+
+# The work split of both persistent launches (KINDS, MAX_CHUNKS,
+# MAX_SHARED_BYTES, STATIC_SHARED_BYTES and segment_plan re-exported for the
+# segment's callers).
+from pocket_tts_tpu_torch.ops.persistent import (  # noqa: F401
+    BLOCK_QUOTA,
+    KINDS,
+    MAX_CHUNKS,
+    MAX_SHARED_BYTES,
+    STATIC_SHARED_BYTES,
+    THREADS,
+    VEC_PER_THREAD,
+    barrier_counter,
+    launch_plan,
+    phase_list,
+    segment_plan,
+)
 
 
 def pack_flow(flow_net: SimpleMLPAdaLN, flow_params: dict) -> dict:
@@ -121,102 +137,6 @@ def fused_segment_decode_reference(
     return torch.stack(latents), torch.cat(eos)
 
 
-# The kernel's work split (csrc/fused_segment.cu). Weight matrices of a frame,
-# in the order of the row table the kernel reads (enum Kind).
-KINDS = ("in", "qkv", "o", "ff1", "ff2", "cond", "flow_in", "ada", "w0", "w2", "final")
-THREADS = 512  # pd::kThreads
-VEC_PER_THREAD = 2  # pd::kVecPer: a prologue's vector holds at most THREADS * 2 floats
-MAX_CHUNKS = 8  # kMaxChunks: attention items per head
-MIN_CHUNK = 64  # fewest cache rows per attention item
-MAX_SHARED_BYTES = 232448  # an H100 block's opt-in shared memory (227 KB)
-# Static shared memory of a block: red, q/k/v rows, PV partials, and 1 KB
-# for the ring's two mbarriers, the phase descriptors, the row ranges and
-# the compiler's alignment.
-STATIC_SHARED_BYTES = (32 + 3 * 64 + THREADS // 32 * 64) * 4 + 1024
-BLOCK_QUOTA = 1 << 20  # GridBarrier::kBlockQuota: a launch waits on fewer barriers
-MAX_BLOCKS = 4096  # kEpoch / kBlockQuota
-
-
-def _align16(n: int) -> int:
-    return -(-n // 16) * 16
-
-
-def _align128(n: int) -> int:
-    return -(-n // 128) * 128
-
-
-def weight_kinds(L: int, E: int, FF: int, ldim: int, MC: int, depth: int) -> dict:
-    """{kind: (rows, K, bytes per element)} of one frame's matrices (one
-    layer's or one flow block's where there are several)."""
-    na = (3 * depth + 2) * MC
-    return {
-        "in": (E, ldim, 1), "qkv": (3 * E, E, 1), "o": (E, E, 1), "ff1": (FF, E, 1), "ff2": (E, FF, 1),
-        "cond": (MC, E, 2), "flow_in": (MC, ldim, 2), "ada": (na, MC, 2), "w0": (MC, MC, 2), "w2": (MC, MC, 2),
-        "final": (ldim, MC, 2),
-    }
-
-
-def phase_list(L: int, depth: int) -> list[tuple[str, tuple[str, ...]]]:
-    """The phases of one frame, in order, each (name, weight kinds it reads);
-    a grid barrier follows each (the last of a launch excepted)."""
-    phases = [("in", ("in",))]
-    for l in range(L):
-        phases += [(f"qkv{l}", ("qkv",)), (f"scores{l}", ()), (f"pv{l}", ()), (f"o{l}", ("o",)),
-                   (f"ff1_{l}", ("ff1",)), (f"ff2_{l}", ("ff2",))]
-    phases += [("head", ("cond", "flow_in")), ("ada", ("ada",))]
-    for i in range(depth):
-        phases += [(f"w0_{i}", ("w0",)), (f"w2_{i}", ("w2",))]
-    return phases + [("final", ("final",))]
-
-
-def _even(n: int, blocks: int) -> list[int]:
-    return [b * n // blocks for b in range(blocks + 1)]
-
-
-def segment_plan(L: int, E: int, H: int, FF: int, ldim: int, MC: int, depth: int, C: int, blocks: int) -> dict:
-    """The work split of one kernel launch over `blocks` blocks.
-
-    rows[kind]: block b owns rows [rows[kind][b], rows[kind][b + 1]) of that
-    matrix in every phase that reads it (an even split). Attention items are
-    (head, chunk): chunk c of head h covers cache rows [c * chunk,
-    min(C, (c + 1) * chunk)); item h * chunks + c belongs to block b when
-    items[b] <= it < items[b + 1], in the scores phase and in the PV phase,
-    which reads the scores the block kept. A chunk is a multiple of 32 rows,
-    at least MIN_CHUNK, sized for at most MAX_CHUNKS (and blocks / H) items
-    a head. Shared memory: the weight ring, two slots of slot_bytes at 0
-    (weight phase j's rows, block_bytes of each matrix it reads, are copied
-    into slot j % 2 while weight phase j - 1 runs), the bf16 activation
-    (xs_off), the second one of the head phase (xs2_off) and each item's
-    scores plus its self score (sc_off, chunk + 4 floats an item); `table`
-    is the int32 row table the kernel takes."""
-    target = max(1, min(MAX_CHUNKS, blocks // H))
-    chunk = max(MIN_CHUNK, -(-(-(-C // target)) // 32) * 32)
-    chunks = -(-C // chunk)
-    kinds = weight_kinds(L, E, FF, ldim, MC, depth)
-    rows = {k: _even(kinds[k][0], blocks) for k in KINDS}
-    items = _even(H * chunks, blocks)
-    max_items = max(b - a for a, b in zip(items, items[1:]))
-    phases = phase_list(L, depth)
-    # A ring slot holds the most bytes a block copies for one weight phase:
-    # its rows of each matrix the phase reads, each matrix 128-byte aligned.
-    block_bytes = {k: max(b - a for a, b in zip(rows[k], rows[k][1:])) * kinds[k][1] * kinds[k][2] for k in KINDS}
-    slot_bytes = max(sum(_align128(block_bytes[k]) for k in ks) for _, ks in phases if ks)
-    xs_off = 2 * slot_bytes
-    xs2_off = xs_off + _align16(max(E, FF, MC, ldim) * 2)
-    sc_off = xs2_off + _align16(ldim * 2)
-    shared = sc_off + max_items * (chunk + 4) * 4
-    if shared + STATIC_SHARED_BYTES > MAX_SHARED_BYTES:
-        raise ValueError(f"C={C}, {blocks} blocks: {shared + STATIC_SHARED_BYTES} bytes of shared memory per block "
-                         f"(a weight ring of two {slot_bytes}-byte slots); the H100 allows {MAX_SHARED_BYTES}")
-    return {
-        "blocks": blocks, "rows": rows, "kinds": kinds, "chunk": chunk, "chunks": chunks, "items": items,
-        "max_items": max_items, "phases": [name for name, _ in phases], "barriers_per_frame": len(phases),
-        "block_bytes": block_bytes, "slot_bytes": slot_bytes, "xs_off": xs_off, "xs2_off": xs2_off,
-        "sc_off": sc_off, "shared_bytes": shared,
-        "table": [r for k in KINDS for r in rows[k]] + items,
-    }
-
-
 def split_attention_reference(q, k, v, kc, vc, valid, chunk: int):
     """The kernel's two-phase attention in plain PyTorch (same inputs and
     result as fused_backbone.attention_reference): chunk by chunk of the
@@ -251,46 +171,6 @@ def split_attention_reference(q, k, v, kc, vc, valid, chunk: int):
             part = part + _bf16r(torch.exp(s_self - big) / denom)[:, None] * v
         out = out + part
     return out
-
-
-@functools.lru_cache(maxsize=None)
-def launch_plan(device_index: int, L, E, H, FF, ldim, MC, depth, C):
-    """(plan, its row table on the device) of a launch on that device: the
-    grid is every SM times the blocks an SM holds at the plan's shared
-    memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor), all resident,
-    as a cooperative launch needs; plan["blocks_per_sm"] says how many."""
-    from pocket_tts_tpu_torch.ops import _cuda
-
-    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
-    plan = segment_plan(L, E, H, FF, ldim, MC, depth, C, sms)
-    per_sm = ctypes.c_int(0)
-    with torch.cuda.device(device_index):
-        err = _cuda.library("fused_segment").ptt_fused_segment_occupancy(
-            plan["shared_bytes"], ctypes.byref(per_sm))
-    if err or per_sm.value < 1:
-        raise RuntimeError(f"fused_segment_decode: no block fits an SM at {plan['shared_bytes']} bytes of shared "
-                           f"memory (CUDA error {err})")
-    if per_sm.value > 1:
-        plan = segment_plan(L, E, H, FF, ldim, MC, depth, C, sms * per_sm.value)
-    plan["blocks_per_sm"] = per_sm.value
-    if plan["blocks"] > MAX_BLOCKS:
-        raise ValueError(f"fused_segment_decode: {plan['blocks']} blocks; the grid barrier counts at most {MAX_BLOCKS}")
-    table = torch.tensor(plan["table"], dtype=torch.int32, device=torch.device("cuda", device_index))
-    return plan, table
-
-
-_COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
-
-
-def _barrier_counter(device) -> torch.Tensor:
-    """The grid barrier's arrival counter of the current stream on `device`
-    (zeroed once; each launch adds a whole epoch, so it is never reset)."""
-    from pocket_tts_tpu_torch.ops import _cuda
-
-    key = (device.index, _cuda.stream_ptr())
-    if key not in _COUNTERS:
-        _COUNTERS[key] = torch.zeros(1, dtype=torch.int64, device=device)
-    return _COUNTERS[key]
 
 
 def _flow_args(fp, E: int, ldim: int, device):
@@ -360,7 +240,7 @@ def fused_segment_decode(
         ctypes.byref(args), ctypes.byref(fargs), latent.data_ptr(), int(bool(is_bos)), noise.data_ptr(),
         S, int(qpos0), int(widx0), latents.data_ptr(), eos.data_ptr(), table.data_ptr(), plan["blocks"],
         plan["chunk"], plan["chunks"], plan["slot_bytes"], plan["xs_off"], plan["xs2_off"], plan["sc_off"],
-        plan["shared_bytes"], part.data_ptr(), stats.data_ptr(), _barrier_counter(dev).data_ptr(),
+        plan["shared_bytes"], part.data_ptr(), stats.data_ptr(), barrier_counter(dev).data_ptr(),
         _cuda.stream_ptr(),
     )
     if err:

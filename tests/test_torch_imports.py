@@ -16,6 +16,7 @@ MODULES = [
     "pocket_tts_tpu_torch.main",
     "pocket_tts_tpu_torch.ops.fused_backbone",
     "pocket_tts_tpu_torch.ops.fused_segment",
+    "pocket_tts_tpu_torch.ops.persistent",
     "pocket_tts_tpu_torch.ops.batch_attention",
     "pocket_tts_tpu_torch.ops.attention",
     "pocket_tts_tpu_torch.ops._cuda",
@@ -73,7 +74,8 @@ def _c_entry_points():
     return found
 
 
-@pytest.mark.parametrize("name", ["ptt_fused_backbone_step", "ptt_fused_segment_decode", "ptt_fused_segment_occupancy",
+@pytest.mark.parametrize("name", ["ptt_fused_backbone_step", "ptt_fused_backbone_occupancy", "ptt_fused_segment_decode",
+                                  "ptt_fused_segment_occupancy",
                                   "ptt_batch_decode_attention",
                                   "ptt_row_write", "ptt_head_slice_weighted_sum", "ptt_stream_read",
                                   "ptt_kv_read_sum"])
