@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's B=1 int8 main path, its batch path, the probe
-entry point, the serving engine and the HTTP server once on one NVIDIA H100.
+entry point, the serving engine, the HTTP server, voice cloning and
+fine-tuning once on one NVIDIA H100.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -119,7 +120,24 @@ Phases (any failure exits non-zero and prints no result line):
      (finite audio of whole 1920-sample frames, every frame through a B=1
      kernel), then a 35 s WAV with truncate=True (state <= 380 frames) and
      a [T] array; the clone latency split into read + convert, encode,
-     projection and prefill (CUDA events, medians of warm runs).
+     projection and prefill (CUDA events, medians of warm runs);
+ 14. fine-tuning at b6369a24 width in float32 (seeded random weights, TF32
+     off): the flow-matching loss and its gradients at B=2 (16 text tokens,
+     32 latent frames) on the card against the same call on the CPU with
+     the same noise (TOL_TRAIN_LOSS, TOL_TRAIN_GRAD); 20 AdamW steps at B=8
+     (32 tokens, 125 frames) whose last five losses average below their
+     first five, timed per step by CUDA events, then 3 steps under
+     torch.profiler (device busy, kernel records per step, idle share, the
+     optimizer's device time); the train state saved and restored bit-exact;
+     the trained weights exported with save_checkpoint, loaded by load_model
+     as an int8 model on the card (its leaves equal the trained weights cast
+     and quantized), a voice cloned from a seeded 3 s array, and the main
+     text decoded by generate_audio_stream through both B=1 kernels; then the
+     capacity gate: the main model's voice expanded to C=12416 (past the
+     kernels' 12288 rows) decodes the main text with neither B=1 kernel
+     launched, its latents within TOL_SEGMENT (max) and TOL_SEGMENT_MEAN
+     (mean) of the same voice and flow noise decoded at C=12288 through the
+     kernels.
 
 The total wall time is printed before the last two lines. The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.
@@ -193,6 +211,13 @@ TOL_PROBE_SUM = 1e-5  # relative to the largest |output|
 # largest output.
 TOL_READ_SUM = 1e-5
 TOL_KV_SUM = 1e-4
+# Fine-tuning (phase 14): the card and the CPU compute the same float32 loss
+# and gradients (TF32 off) and differ by summation order: the loss within
+# rel 1e-4, each gradient leaf within 1e-3 of its largest |value|.
+TOL_TRAIN_LOSS = 1e-4
+TOL_TRAIN_GRAD = 1e-3
+TRAIN_STEPS = 20  # AdamW steps at B=8, 32 text tokens, 125 latent frames
+TRAIN_WINDOW = 3  # further steps under torch.profiler
 READ_RATE_LIMIT = 1.05 * HBM_BYTES_PER_S  # a faster read than this is a fault of the probe
 SERVER_TEXTS = [" ".join(BATCH_WORDS[: 6 + (i * 7) % 10]).capitalize() + "." for i in range(48)]
 
@@ -568,6 +593,9 @@ def main() -> None:
 
     # ---------------------------------------------------------------- phase 13
     clone_phase(torch, model, card, fused_backbone_step, fused_segment_decode, dev)
+
+    # ---------------------------------------------------------------- phase 14
+    training_phase(torch, model, card, fused_backbone_step, fused_segment_decode, dev)
     print(f"chip_smoke.py wall time: {time.monotonic() - t_start:.1f} s [{card}]", flush=True)
 
     def entry(name, source, replaces, n_launches):
@@ -1286,6 +1314,247 @@ def clone_phase(torch, model, card, step_kernel, segment_kernel, dev) -> None:
     torch.cuda.empty_cache()
 
 
+def _train_batch(torch, flow_lm, B: int, Tt: int, Tl: int, seed: int):
+    """Seeded tokens [B, Tt], latents [B, Tl, ldim] and EOS labels (1 on
+    each stream's last frame), on the CPU."""
+    gen = torch.Generator().manual_seed(seed)
+    tokens = torch.randint(0, flow_lm.n_bins, (B, Tt), generator=gen)
+    latents = torch.randn(B, Tl, flow_lm.ldim, generator=gen)
+    eos = torch.zeros(B, Tl)
+    eos[:, -1] = 1.0
+    return tokens, latents, eos
+
+
+def training_phase(torch, model, card, step_kernel, segment_kernel, dev) -> None:
+    """Phase 14: fine-tuning at b6369a24 width: card/CPU parity of the loss
+    and gradients, 20 timed AdamW steps, the train-state round trip, the
+    export into an int8 serving model decoding through both B=1 kernels,
+    and the B=1 kernels' capacity gate."""
+    import numpy as np
+    import yaml
+    from torch.profiler import ProfilerActivity, profile
+
+    import pocket_tts_tpu_torch.models.generate as generate
+    from pocket_tts_tpu_torch.models.flow_lm import FlowLMModel
+    from pocket_tts_tpu_torch.models.mimi import MimiModel
+    from pocket_tts_tpu_torch.models.tts_model import ModelState, TTSModel
+    from pocket_tts_tpu_torch.models.weights import (
+        cast_serving_dtype,
+        map_tensors,
+        named_leaves,
+        quantize_int8,
+        save_checkpoint,
+    )
+    from pocket_tts_tpu_torch.ops.fused_backbone import MAX_CAPACITY
+    from pocket_tts_tpu_torch.training import (
+        adamw,
+        flow_matching_loss,
+        init_train_state,
+        make_train_step,
+        restore_train_state,
+        save_train_state,
+    )
+    from pocket_tts_tpu_torch.training.flow_matching import flow_noise
+    from pocket_tts_tpu_torch.utils.safetensors import load_safetensors
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 is on for matmuls: the training step must run in float32")
+    cfg = model.config
+    flow_lm = FlowLMModel(cfg.flow_lm, latent_dim=cfg.mimi.quantizer.dimension, speaker_dim=cfg.mimi.seanet.dimension)
+    gen = torch.Generator().manual_seed(14)
+    params = {"flow_lm": flow_lm.init_params(gen), "mimi": MimiModel(cfg.mimi).init_params(gen)}
+    params["flow_lm"]["speaker_proj_weight"] = torch.randn(flow_lm.dim, flow_lm.speaker_dim, generator=gen) * 0.02
+
+    # Parity: one loss and its gradients on the card and on the CPU, same
+    # weights, batch and noise.
+    batch = _train_batch(torch, flow_lm, 2, 16, 32, seed=1)
+    noise = flow_noise(torch.Generator().manual_seed(2), 2, 32, flow_lm.ldim)
+
+    def loss_and_grads(where):
+        state = init_train_state(flow_lm, map_tensors(params["flow_lm"], lambda t: t.to(where)), adamw(1e-3))
+        loss, _ = flow_matching_loss(flow_lm, state.params, None, *(t.to(where) for t in batch),
+                                     noise=tuple(t.to(where) for t in noise))
+        loss.backward()
+        return float(loss.detach()), {name: leaf.grad.cpu() for name, leaf in named_leaves(state.params)}
+
+    (loss_cpu, grads_cpu), (loss_dev, grads_dev) = loss_and_grads("cpu"), loss_and_grads(dev)
+    loss_rel = abs(loss_dev - loss_cpu) / abs(loss_cpu)
+    grad_rel, worst = 0.0, ""
+    for name, ref in grads_cpu.items():
+        scale = float(ref.abs().max())
+        diff = float((grads_dev[name] - ref).abs().max())
+        rel = diff / scale if scale > 0 else (0.0 if diff == 0 else float("inf"))
+        if rel > grad_rel:
+            grad_rel, worst = rel, name
+    print(f"training parity B=2 Tl=32, card vs CPU: loss {loss_dev:.6f} vs {loss_cpu:.6f} (rel {loss_rel:.3g}, tol "
+          f"{TOL_TRAIN_LOSS}); largest gradient difference {grad_rel:.3g} of its leaf's max |value| ({worst}; tol "
+          f"{TOL_TRAIN_GRAD}) over {len(grads_cpu)} leaves [{card}]", flush=True)
+    if not (loss_rel <= TOL_TRAIN_LOSS and grad_rel <= TOL_TRAIN_GRAD):
+        fail(f"training parity: loss rel {loss_rel:.3g}, gradient {grad_rel:.3g} at {worst}")
+    del grads_cpu, grads_dev
+
+    # Training: AdamW steps on one batch, each step's wall between CUDA events.
+    state = init_train_state(flow_lm, map_tensors(params["flow_lm"], lambda t: t.to(dev)), adamw(1e-3))
+    train_step = make_train_step(flow_lm)
+    tokens, latents, eos = (t.to(dev) for t in _train_batch(torch, flow_lm, 8, 32, 125, seed=3))
+    rng = torch.Generator(device=dev).manual_seed(4)
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(TRAIN_STEPS + 1)]
+    metrics = []
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    events[0].record()
+    for i in range(TRAIN_STEPS):
+        state, m = train_step(state, rng, tokens, latents, eos)
+        events[i + 1].record()
+        metrics.append(m)
+    torch.cuda.synchronize()
+    host_s = time.monotonic() - t0
+    step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    train_losses = [float(m["loss"]) for m in metrics]
+    warm_ms = statistics.median(step_ms[1:])
+    first5, last5 = statistics.mean(train_losses[:5]), statistics.mean(train_losses[-5:])
+    print(f"training B=8 Tt=32 Tl=125: {TRAIN_STEPS} AdamW steps, loss {train_losses[0]:.4f} -> "
+          f"{train_losses[-1]:.4f} (mean of the first five {first5:.4f}, of the last five {last5:.4f}); wall per step "
+          f"between CUDA events: first {step_ms[0]:.2f} ms, median of the other {TRAIN_STEPS - 1} {warm_ms:.2f} ms "
+          f"(min {min(step_ms[1:]):.2f}, max {max(step_ms[1:]):.2f}); host wall {host_s * 1e3 / TRAIN_STEPS:.2f} "
+          f"ms per step [{card}]", flush=True)
+    if not all(np.isfinite(train_losses)) or not last5 < first5:
+        fail(f"training: the loss did not fall: {train_losses}")
+
+    # Where a step's time goes: a profiled window of further steps.
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(TRAIN_WINDOW):
+            state, _ = train_step(state, rng, tokens, latents, eos)
+        torch.cuda.synchronize()
+    averages = prof.key_averages()
+    kernels = _kernel_events(torch, averages)
+    if not kernels:
+        fail("training: torch.profiler recorded no kernel in the profiled steps")
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / TRAIN_WINDOW
+    records = sum(e.count for e in kernels) / TRAIN_WINDOW
+    # The optimizer: torch.optim's own record_function ranges. The host-side
+    # range's device time sums the kernels its operators launched; the
+    # device-side span runs from its first kernel to its last.
+    opt = {}
+    for name in ("Optimizer.step#", "Optimizer.zero_grad#"):
+        host = [e for e in averages if e.device_type == torch.autograd.DeviceType.CPU and e.key.startswith(name)]
+        span = [e for e in averages if e.device_type == torch.autograd.DeviceType.CUDA and e.key.startswith(name)]
+        opt[name] = [sum(e.device_time_total for e in host) / 1e3 / TRAIN_WINDOW,
+                     sum(e.self_device_time_total for e in span) / 1e3 / TRAIN_WINDOW,
+                     sum(e.cpu_time_total for e in host) / 1e3 / TRAIN_WINDOW]
+    by_kind = {k: round(v / TRAIN_WINDOW, 3) for k, v in _busy_by_kind(kernels).items()}
+    step_opt, zero = opt["Optimizer.step#"], opt["Optimizer.zero_grad#"]
+    print(f"training step under torch.profiler ({TRAIN_WINDOW} steps): device busy {busy_ms:.2f} ms per step in "
+          f"{records:.0f} kernel records, idle share {1 - busy_ms / warm_ms:.2f} against the unprofiled "
+          f"{warm_ms:.2f} ms; optimizer.step {step_opt[0]:.3f} ms of kernel time per step "
+          f"({step_opt[0] / max(busy_ms, 1e-9):.1%} of busy), a {step_opt[1]:.3f} ms device span, {step_opt[2]:.2f} ms on the host (profiled); zero_grad "
+          f"{zero[0]:.3f} ms of kernel time, a {zero[1]:.3f} ms span; busy ms per step by kind {json.dumps(by_kind)} "
+          f"[{card}]", flush=True)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    print("training step, largest kernels (device ms per step, records per step): " + "; ".join(
+        f"{e.key[:60]} {e.self_device_time_total / 1e3 / TRAIN_WINDOW:.3f} ms x{e.count // TRAIN_WINDOW}"
+        for e in top), flush=True)
+
+    # The train state round trip.
+    out = ROOT / "build" / "finetune"
+    save_train_state(state, out / "train_state.pt")
+    template = init_train_state(flow_lm, map_tensors(params["flow_lm"], lambda t: t.to(dev)), adamw(1e-3))
+    restored = restore_train_state(out / "train_state.pt", template)
+    same = all(torch.equal(a, b) for (_, a), (_, b) in zip(named_leaves(state.params), named_leaves(restored.params)))
+    steps_done = TRAIN_STEPS + TRAIN_WINDOW
+    print(f"train state saved and restored at step {restored.step}: params bit-identical {same}", flush=True)
+    if restored.step != steps_done or not same:
+        fail(f"train state round trip: step {restored.step} (expected {steps_done}), params equal {same}")
+    del template, restored
+
+    # Fine-tune to serving: export, load as an int8 model, decode.
+    trained = map_tensors(state.params, lambda t: t.detach())
+    weights = out / "finetuned.safetensors"
+    n = save_checkpoint({"flow_lm": trained, "mimi": params["mimi"]}, weights)
+    flat = load_safetensors(weights)
+    exported = all(np.array_equal(flat[f"flow_lm.{name}"], leaf.cpu().numpy().reshape(flat[f"flow_lm.{name}"].shape))
+                   for name, leaf in named_leaves(trained))
+    raw = model.config.model_dump(mode="json")
+    raw.update(weights_path=str(weights), weights_path_without_voice_cloning=None)
+    (out / "finetuned.yaml").write_text(yaml.safe_dump(raw))
+    tuned = TTSModel.load_model(out / "finetuned.yaml", param_dtype="int8", device=dev, eos_threshold=1e9)
+    # What from_params makes of the trained weights: the serving cast and the
+    # int8 codes, computed on the host as load_model computes them.
+    trained_cpu = map_tensors(trained, lambda t: t.cpu())
+    expected = quantize_int8(cast_serving_dtype({"flow_lm": trained_cpu}, torch.bfloat16))["flow_lm"]
+    got = dict(named_leaves(tuned.params["flow_lm"]))
+    loaded = all(torch.equal(got[name].cpu(), leaf) for name, leaf in named_leaves(expected))
+    print(f"export: {n} tensors written, the file's FlowLM leaves equal the trained ones: {exported}; load_model "
+          f"int8 from the file (random_init {tuned.random_init}): every FlowLM leaf equals the trained weights cast "
+          f"and quantized: {loaded}", flush=True)
+    if not (exported and loaded) or tuned.random_init:
+        fail("export: the fine-tuned weights did not reach the int8 serving model")
+    # A loaded checkpoint has no predefined voice offline: clone one.
+    voice = tuned.get_state_for_audio_prompt(
+        (np.random.default_rng(7).standard_normal(3 * tuned.sample_rate) * 0.1).astype(np.float32))
+    step_kernel.launches = segment_kernel.launches = 0
+    segment_kernel.frames = 0
+    frames = list(tuned.generate_audio_stream(voice, TEXT))
+    torch.cuda.synchronize()
+    decoded = tuned.last_generation["frames"]
+    kernel_frames = step_kernel.launches + segment_kernel.frames
+    finite = all(f.shape == (1920,) and np.isfinite(f).all() for f in frames)
+    print(f"fine-tuned int8 model: generate_audio_stream {len(frames)} frames, finite {finite}, {decoded} decoded, "
+          f"{kernel_frames} through the B=1 kernels (step {step_kernel.launches}, segment {segment_kernel.launches} "
+          f"launches)", flush=True)
+    if not frames or not finite or min(step_kernel.launches, segment_kernel.launches) <= 0 or kernel_frames != decoded:
+        fail("fine-tuned int8 model: the decode did not run through both B=1 kernels")
+    del tuned, state, trained, trained_cpu, expected, got
+    torch.cuda.empty_cache()
+
+    # The capacity gate: past the B=1 kernels' largest cache (12288 rows)
+    # the decode takes the plain path; 12416 is the next 128-row capacity
+    # bucket. Latents are recorded where each segment reaches Mimi.
+    gate = (MAX_CAPACITY, -(-(MAX_CAPACITY + 1) // 128) * 128)
+    main_voice = model.get_state_for_audio_prompt("alba")
+    decode_chunk = generate.decode_mimi_chunk
+    runs = {}
+    for C in gate:
+        latents_seen = []
+
+        def record(flow_params, mimi_params, mimi, lat, mimi_state):
+            latents_seen.append(lat.clone())
+            return decode_chunk(flow_params, mimi_params, mimi, lat, mimi_state)
+
+        state = ModelState(model.flow_lm.expand_state(main_voice.tree, C), main_voice.pos, main_voice.written)
+        model._gen.manual_seed(21)  # the same flow noise at both capacities
+        step_kernel.launches = segment_kernel.launches = 0
+        segment_kernel.frames = 0
+        generate.decode_mimi_chunk = record
+        try:
+            t0 = time.monotonic()
+            audio = model.generate_audio(state, TEXT)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+        finally:
+            generate.decode_mimi_chunk = decode_chunk
+        runs[C] = (torch.cat(latents_seen, dim=1)[0], model.last_generation["frames"],
+                   step_kernel.launches + segment_kernel.frames, step_kernel.launches + segment_kernel.launches)
+        print(f"capacity gate C={C}: decoded at capacity {model.last_generation['capacity']}, "
+              f"{model.last_generation['frames']} frames in {wall * 1e3:.1f} ms, B=1 kernel launches: step "
+              f"{step_kernel.launches}, segment {segment_kernel.launches}; audio finite "
+              f"{bool(np.isfinite(audio).all())} [{card}]", flush=True)
+        if model.last_generation["capacity"] != C or not np.isfinite(audio).all():
+            fail(f"capacity gate C={C}: decoded at {model.last_generation['capacity']}, or non-finite audio")
+    (lat_k, decoded_k, kernel_frames_k, _), (lat_p, _, _, launches_p) = (runs[C] for C in gate)
+    if kernel_frames_k != decoded_k:
+        fail(f"capacity gate: at C={gate[0]} {kernel_frames_k} of {decoded_k} frames went through the B=1 kernels")
+    if launches_p:
+        fail(f"capacity gate: at C={gate[1]} the B=1 kernels launched {launches_p} times")
+    e_max, e_mean = max_err(lat_p, lat_k), float((lat_p - lat_k).abs().mean())
+    print(f"capacity gate: {lat_p.shape[0]} latents on the plain path at C={gate[1]} against the kernels "
+          f"at C={gate[0]}: max err {e_max:.3g} (tol {TOL_SEGMENT}), mean {e_mean:.3g} (tol "
+          f"{TOL_SEGMENT_MEAN})", flush=True)
+    if lat_p.shape != lat_k.shape or not (e_max <= TOL_SEGMENT and e_mean <= TOL_SEGMENT_MEAN):
+        fail(f"capacity gate: latents differ by {e_max:.4g} (mean {e_mean:.4g})")
+    torch.cuda.empty_cache()
+
+
 def _expected_frames(model, text: str, text_pad: int) -> int:
     """Frames the engine decodes for `text` with EOS disabled: max_gen of
     every sentence chunk's token parts (the direct API's chunking)."""
@@ -1446,10 +1715,18 @@ def profiled_busy(torch, fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    kernels = _kernel_events(torch, prof.key_averages())
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     return wall_ms, busy_ms, _busy_by_kind(kernels), kernels
+
+
+def _kernel_events(torch, averages):
+    """The kernels among torch.profiler's averaged events: device events with
+    device time, less the device-side spans of record_function ranges (such
+    as torch.optim's `Optimizer.step#...`), which cover kernels counted
+    already and the gaps between them."""
+    return [e for e in averages if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)]
 
 
 def engine_window(torch, engine, voice):

@@ -14,9 +14,9 @@ tensor all layers share live on the device and update in place; the write
 index and the stream positions are host integers. An int8 cache adds
 per-layer `k_scale` / `v_scale` [B, C], moved like `slot_pos`. Int8 models
 carry packed kernel weights under params["fused_backbone"] (and
-"fused_flow"), and B=1 decode steps over a bf16 cache then run
-ops/fused_backbone.fused_backbone_step; batch steps (B > 1) attend through
-ops/batch_attention.batch_decode_attention.
+"fused_flow"), and B=1 decode steps over a bf16 cache of a capacity the
+kernel takes then run ops/fused_backbone.fused_backbone_step; batch steps
+(B > 1) attend through ops/batch_attention.batch_decode_attention.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ import torch
 from pocket_tts_tpu_torch.config.schema import FlowLMConfig
 from pocket_tts_tpu_torch.ops.adaln import SimpleMLPAdaLN
 from pocket_tts_tpu_torch.ops.attention import _uniform
-from pocket_tts_tpu_torch.ops.fused_backbone import fused_backbone_step
+from pocket_tts_tpu_torch.ops.fused_backbone import capacity_ok, fused_backbone_step
 from pocket_tts_tpu_torch.ops.linear import linear
 from pocket_tts_tpu_torch.ops.norms import layer_norm
 from pocket_tts_tpu_torch.ops.sampling import lsd_decode
@@ -175,9 +175,11 @@ class FlowLMModel:
 
     def fused_step_ok(self, params: Params, state: State, B: int) -> bool:
         """The JAX package's dispatch rule for the per-frame kernel: B == 1,
-        packed int8 weights, and a bf16 cache (the kernel carries no int8-KV
-        scales)."""
-        return "fused_backbone" in params and B == 1 and state["transformer"]["layers"][0]["k"].dtype != torch.int8
+        packed int8 weights, a bf16 cache (the kernel carries no int8-KV
+        scales) whose capacity the kernel takes (larger caches decode on the
+        plain path, as the JAX package's fall back to XLA)."""
+        k = state["transformer"]["layers"][0]["k"]
+        return "fused_backbone" in params and B == 1 and k.dtype != torch.int8 and capacity_ok(k.shape[1])
 
     # ------------------------------------------------------------------ state utils
 

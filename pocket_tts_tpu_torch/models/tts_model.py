@@ -14,6 +14,11 @@ and B streams alike (`_generate_batch_frames`); frames decode in segments
 streamed segment and once per bulk generation. Batch segments read only the
 128-bucketed front of the cache that holds written rows (`read_limit`).
 
+`save_checkpoint` exports the params as a safetensors file that
+`load_model` reads back (the end of fine-tuning, training/), `profile`
+traces a block with torch.profiler, and `ModelState.size_bytes` sizes a
+state.
+
 Offline (no reachable checkpoint) the model starts from seeded random
 weights, the hash tokenizer and a synthetic voice prompt, like the JAX
 package.
@@ -53,12 +58,19 @@ from pocket_tts_tpu_torch.models.text import (
     prepare_text_prompt,
     split_into_best_sentences,
 )
-from pocket_tts_tpu_torch.models.weights import cast_serving_dtype, load_state_dict, map_tensors, quantize_int8
+from pocket_tts_tpu_torch.models.weights import (
+    cast_serving_dtype,
+    load_state_dict,
+    map_tensors,
+    quantize_int8,
+    save_checkpoint,
+)
 from pocket_tts_tpu_torch.ops.fused_backbone import pack_backbone
 from pocket_tts_tpu_torch.ops.fused_segment import pack_flow
 from pocket_tts_tpu_torch.ops.sampling import sample_noise
 from pocket_tts_tpu_torch.utils.assets import download_if_necessary
 from pocket_tts_tpu_torch.utils.safetensors import load_safetensors
+from pocket_tts_tpu_torch.utils.timing import size_of_pytree
 
 logger = logging.getLogger(__name__)
 
@@ -132,6 +144,9 @@ class ModelState:
     @property
     def batch_size(self) -> int:
         return len(self.pos)
+
+    def size_bytes(self) -> int:
+        return size_of_pytree(self.tree)
 
 
 def _resolve_device(device) -> torch.device:
@@ -270,6 +285,25 @@ class TTSModel:
                 )
         return cls(flow_lm, MimiModel(cfg.mimi), params, tokenizer, config=cfg, device=device,
                    state_dtype=serving, **kwargs)
+
+    def save_checkpoint(self, path) -> int:
+        """Write the current params as a torch-layout safetensors file that
+        load_model reads through a local weights_path (a model loaded with
+        param_dtype "int8" is refused; export from "float32"). Returns the
+        tensor count."""
+        return save_checkpoint(self.params, path)
+
+    def profile(self, log_dir: Union[str, Path]):
+        """Context manager: a torch.profiler trace of everything run inside
+        (host activity, and the card's kernels on a CUDA model), written on
+        exit as a Chrome trace (`*.pt.trace.json`, TensorBoard's layout)
+        into log_dir."""
+        from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        return profile(activities=activities, on_trace_ready=tensorboard_trace_handler(str(log_dir)))
 
     # ------------------------------------------------------------------ voice state
 

@@ -1,5 +1,5 @@
-"""Weights: checkpoint loading, the JAX bridge, serving casts and int8
-(port of pocket_tts_tpu/models/weights.py).
+"""Weights: checkpoint loading and export, the JAX bridge, serving casts and
+int8 (port of pocket_tts_tpu/models/weights.py).
 
 Parameter trees are nested dicts/lists of tensors whose paths are the
 checkpoint's torch module paths, as in the JAX package. Two layouts differ
@@ -131,6 +131,52 @@ def params_from_jax(tree, path: str = ""):
     if path.endswith("convtr.weight") and arr.ndim == 3:
         arr = _convtr_to_torch(arr)
     return _np_to_torch(arr)
+
+
+def named_leaves(tree, prefix: str = ""):
+    """(dotted path, leaf) of every tensor leaf of a params/state tree, in
+    tree order; other leaves (host ints, None) are left out."""
+    if isinstance(tree, dict):
+        for key, value in tree.items():
+            yield from named_leaves(value, f"{prefix}.{key}" if prefix else key)
+    elif isinstance(tree, (list, tuple)):
+        for idx, value in enumerate(tree):
+            yield from named_leaves(value, f"{prefix}.{idx}")
+    elif isinstance(tree, torch.Tensor):
+        yield prefix, tree
+
+
+def flatten_params(params, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Params tree -> flat {dotted_name: np.ndarray} in the tree's layout
+    (bf16 leaves widened to float32, numpy having no bfloat16)."""
+    flat: Dict[str, np.ndarray] = {}
+    for path, leaf in named_leaves(params, prefix):
+        leaf = leaf.detach().cpu()
+        flat[path] = (leaf.float() if leaf.dtype == torch.bfloat16 else leaf).numpy()
+    return flat
+
+
+def save_checkpoint(params: dict, path) -> int:
+    """Write a params tree as a torch-layout safetensors checkpoint that
+    load_model reads through a local weights_path (as the JAX package's
+    save_checkpoint, pocket_tts_tpu/models/weights.py:250): bf16 leaves
+    widened to float32, each packed qkv `in_proj.weight` [3, E, E] back to
+    [3E, E]. ConvTranspose weights are in torch layout already. Returns the
+    tensor count; an int8-quantized tree is refused."""
+    from pocket_tts_tpu_torch.utils.safetensors import save_safetensors
+
+    flat = flatten_params(params)
+    if any(key.endswith("weight.q") for key in flat):
+        raise ValueError(
+            "Cannot save an int8-quantized model as a checkpoint (quantization "
+            "is lossy); load with param_dtype='float32' to export."
+        )
+    for key, tensor in flat.items():
+        if key.endswith("in_proj.weight") and tensor.ndim == 3:
+            flat[key] = tensor.reshape(-1, tensor.shape[-1])
+    save_safetensors(path, flat)
+    logger.info("Saved %d tensors to %s", len(flat), path)
+    return len(flat)
 
 
 def _map_tree(tree, fn, path=()):

@@ -11,7 +11,8 @@
   scale per row (`k_scale` / `v_scale`, [B, C]). Batch decode steps (T == 1,
   B > 1) attend through ops/batch_attention.batch_decode_attention over the
   full cache, reading its first `read_limit` rows; every other call
-  (prefill, T > 1, B == 1) runs the dense `sdpa_slots`.
+  (prefill, T > 1, B == 1) runs the dense `sdpa_slots`. Its `forward` is
+  the cache-free causal form over a whole sequence (training).
 - WindowedRingAttention (Mimi codec): a shift-append ring kept ordered
   oldest -> newest; slot positions are arithmetic, and long chunks attend in
   128-query blocks over a (context + 128)-wide key band. Its `forward` is
@@ -170,6 +171,18 @@ class CausalKVAttention:
         else:
             valid = (sp[:, None, :] >= 0) & (sp[:, None, :] <= positions[:, :, None])  # [B, T, R]
             out = sdpa_slots(q, state["k"][:, :R], state["v"][:, :R], valid[:, None], ks, vs)
+        return linear(out.reshape(B, T, self.embed_dim), params["out_proj"]["weight"])
+
+    def forward(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        """Cache-free causal attention over a whole sequence [B, T, E] (the
+        training path; decoding uses the cached __call__): RoPE at positions
+        0..T-1, query i attends to keys j <= i."""
+        B, T, _ = x.shape
+        q, k, v = _split_qkv(qkv_proj(x, params["in_proj"]["weight"]), self.num_heads)
+        positions = torch.arange(T, dtype=torch.int32, device=x.device)[None, :].expand(B, T)
+        q, k = apply_rope(q, k, rope_angles(positions, self.head_dim, self.max_period))
+        idx = torch.arange(T, device=x.device)
+        out = sdpa_slots(q, k, v, (idx[None, :] <= idx[:, None])[None, None])
         return linear(out.reshape(B, T, self.embed_dim), params["out_proj"]["weight"])
 
 

@@ -36,7 +36,9 @@ flow head) is the work split.
 `fused_backbone_step` launches the kernel for CUDA tensors (or raises) and
 runs `fused_backbone_step_reference`, the plain PyTorch version with the same
 contract, for CPU tensors. `fused_backbone_step.launches` counts kernel
-launches, one per call.
+launches, one per call. Both B=1 kernels take caches whose capacity passes
+`capacity_ok`; the routing rules (models/flow_lm.fused_step_ok,
+models/generate.segment_kernel_ok) send larger caches down the plain path.
 """
 
 from __future__ import annotations
@@ -49,6 +51,19 @@ import torch.nn.functional as F
 
 from pocket_tts_tpu_torch.ops.norms import layer_norm
 from pocket_tts_tpu_torch.ops.persistent import THREADS, VEC_PER_THREAD, barrier_counter, launch_plan
+
+
+# The B=1 kernels take caches whose capacity is a multiple of the 32-row
+# attention grid and at most MAX_CAPACITY rows, the largest they are checked
+# for (ops/persistent.segment_plan fits every C up to it in a block's shared
+# memory).
+CAPACITY_ALIGN = 32
+MAX_CAPACITY = 12288
+
+
+def capacity_ok(C: int) -> bool:
+    """Whether the B=1 kernels take a cache of C rows."""
+    return C % CAPACITY_ALIGN == 0 and C <= MAX_CAPACITY
 
 
 def _bf16r(x: torch.Tensor) -> torch.Tensor:
@@ -185,10 +200,11 @@ def _backbone_args(packed, k_caches, v_caches, slot_pos):
     FF = packed["w1"].shape[1]
     ldim = packed["win"].shape[1]
     C = k_caches[0].shape[1]
-    if d != 64 or E % 16 or FF % 16 or ldim % 16 or C % 32 or C > 12288 or L > _cuda.MAX_LAYERS:
+    if d != 64 or E % 16 or FF % 16 or ldim % 16 or not capacity_ok(C) or L > _cuda.MAX_LAYERS:
         raise ValueError(
-            f"the CUDA backbone takes head_dim 64, E/FF/ldim multiples of 16, C a multiple of 32 up to "
-            f"12288 and at most {_cuda.MAX_LAYERS} layers; got E={E} H={H} FF={FF} ldim={ldim} C={C} L={L}"
+            f"the CUDA backbone takes head_dim 64, E/FF/ldim multiples of 16, C a multiple of {CAPACITY_ALIGN} up "
+            f"to {MAX_CAPACITY} and at most {_cuda.MAX_LAYERS} layers; got E={E} H={H} FF={FF} ldim={ldim} C={C} "
+            f"L={L}"
         )
     if len(k_caches) != L or len(v_caches) != L:
         raise ValueError(f"expected {L} k and v caches")

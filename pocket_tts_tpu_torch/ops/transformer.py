@@ -7,7 +7,7 @@ LayerScale, and either full-history causal attention ("flow_lm") or the
 windowed ring ("mimi"). Parameters and streaming state are plain dicts of
 tensors with the JAX package's tree layout; the KV caches update in place.
 `forward` is the non-streaming call over a whole sequence (mimi kind: the
-encoder of voice cloning).
+encoder of voice cloning; flow_lm kind: causal, the training path).
 """
 
 from __future__ import annotations
@@ -92,7 +92,8 @@ class StreamingTransformerLayer:
         return self._ff(params, x)
 
     def forward(self, params: Params, x: torch.Tensor) -> torch.Tensor:
-        """Non-streaming (whole-sequence) call; mimi kind only."""
+        """Non-streaming (whole-sequence) call: windowed attention at mimi
+        kind, causal at flow_lm kind; no state."""
         h = layer_norm(x, params["norm1"]["weight"], params["norm1"]["bias"], eps=1e-5)
         x = x + self._scaled(params, "layer_scale_1", self.self_attn.forward(params["self_attn"], h))
         return self._ff(params, x)
@@ -152,6 +153,8 @@ class StreamingTransformer:
         return x
 
     def forward(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        """The stack over a whole sequence [B, T, E], no state (see
+        StreamingTransformerLayer.forward)."""
         layer = self.layer
         for l_params in params["layers"]:
             x = layer.forward(l_params, x)

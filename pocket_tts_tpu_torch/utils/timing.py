@@ -1,5 +1,7 @@
 """Device timing of a chain of calls for the port's measurement entry points
-(bw_probe, attn_micro) and for chip_smoke.py's graph walls.
+(bw_probe, attn_micro) and for chip_smoke.py's graph walls, and the byte
+size of a params or state tree (port of pocket_tts_tpu/utils/timing.py's
+size_of_pytree).
 
 On the card the chain is captured once in a CUDA graph and each timing is
 CUDA events around one replay, so the host's time to issue the calls (tens
@@ -58,3 +60,17 @@ def best_seconds(run, repeats: int, device: torch.device, counted=()) -> float:
         torch.cuda.synchronize()
         best = min(best, start.elapsed_time(end) / 1e3)
     return best
+
+
+def size_of_pytree(tree) -> int:
+    """Total bytes of the tensors of a params or state tree, each leaf
+    counted where it appears (as the JAX package counts its leaves); host
+    values such as the stream positions count nothing."""
+    from pocket_tts_tpu_torch.models.weights import named_leaves
+
+    return sum(leaf.numel() * leaf.element_size() for _, leaf in named_leaves(tree))
+
+
+def size_of_dict(state_dict: dict) -> int:
+    """Reference-compatible alias (pocket_tts_mlx/utils/utils.py:15-25)."""
+    return size_of_pytree(state_dict)

@@ -33,6 +33,7 @@ MODULES = [
     "pocket_tts_tpu_torch.data.audio_utils",
     "pocket_tts_tpu_torch.models.seanet",
     "pocket_tts_tpu_torch.models.mimi",
+    "pocket_tts_tpu_torch.training",
 ]
 
 

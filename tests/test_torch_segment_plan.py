@@ -54,7 +54,7 @@ from pocket_tts_tpu_torch.ops.persistent import BACKBONE_KINDS
 B6369A24 = {"L": 6, "E": 1024, "H": 16, "FF": 4096, "ldim": 32, "MC": 512, "depth": 6}
 TINY = {"L": 2, "E": 64, "H": 4, "FF": 256, "ldim": 16, "MC": 32, "depth": 2}
 H100_SMS = 132
-MAX_B1_CAPACITY = 12288  # the largest C the B=1 kernels take (ops/fused_backbone._backbone_args)
+MAX_B1_CAPACITY = fused_backbone.MAX_CAPACITY  # the largest C the B=1 kernels take (12288)
 TOL_ATTN = 1e-2
 TOL_SEG, TOL_SEG_MEAN = 0.15, 2e-2
 TOL_STEP = 2e-2  # the JAX kernel test's gate on h and the caches (tests/test_fused_backbone.py)
