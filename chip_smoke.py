@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's B=1 int8 main path, its batch path, the probe
-entry point, the serving engine, the HTTP server, voice cloning and
-fine-tuning once on one NVIDIA H100.
+entry point, the serving engine, the HTTP server, voice cloning,
+fine-tuning and the sharded (dp, tp) mesh path once on one NVIDIA H100.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -137,7 +137,23 @@ Phases (any failure exits non-zero and prints no result line):
      kernels' 12288 rows) decodes the main text with neither B=1 kernel
      launched, its latents within TOL_SEGMENT (max) and TOL_SEGMENT_MEAN
      (mean) of the same voice and flow noise decoded at C=12288 through the
-     kernels.
+     kernels;
+ 15. the mesh: dryrun_multichip(4) runs 4 ranks (dp=2, tp=2) that share the
+     one card over gloo: the toy generate segment and train step, then
+     b6369a24 in int8 through load_model(mesh=...) and generate_audio_batch
+     of its 8 texts at temperature 0 with bf16 and with int8 KV caches
+     (each rank decodes 4 streams on 8 of the 16 heads through
+     batch_decode_attention, 6 launches a frame on every rank, and launches
+     no B=1 kernel), and one float32 train step of its FlowLM at B=8 x
+     (32 + 125); the parent process holds each against the same model
+     unsharded on the card (audio within TOL_MESH_AUDIO of each stream's
+     peak; loss and gradients within TOL_TRAIN_LOSS and TOL_TRAIN_GRAD) and
+     prints the backend and the wall of each part, labelled as 4 ranks
+     sharing one card. batch_decode_attention is held against its plain
+     version at a rank's shapes (B=4, H=8) at the capacity and every read
+     limit the ranks decoded with (TOL_BATCH); a witness prints where the
+     sharded audio first departs from the unsharded, beside the gap that
+     the plain attention alone opens in the unsharded model.
 
 The total wall time is printed before the last two lines. The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.
@@ -216,6 +232,15 @@ TOL_KV_SUM = 1e-4
 # rel 1e-4, each gradient leaf within 1e-3 of its largest |value|.
 TOL_TRAIN_LOSS = 1e-4
 TOL_TRAIN_GRAD = 1e-3
+# The mesh (phase 15) against the same model unsharded, audio max |err| over
+# each stream's peak |audio|: the batch kernel's gates of phase 3 (TOL_BATCH),
+# taken relative to the peak. The ranks compute what the unsharded model
+# computes and differ by float32 summation order in the tp reductions and in
+# the batch kernel's per-call split (8 heads a rank, not 16). On the CPU at
+# tiny width (tests/test_torch_parallel.py, the same dry run) the sharded
+# audio equals the unsharded at JAX's mesh tolerance with bf16 KV and stays
+# within these bounds with int8 KV.
+TOL_MESH_AUDIO = {"bf16": TOL_BATCH["bf16"], "int8": TOL_BATCH["int8"]}
 TRAIN_STEPS = 20  # AdamW steps at B=8, 32 text tokens, 125 latent frames
 TRAIN_WINDOW = 3  # further steps under torch.profiler
 READ_RATE_LIMIT = 1.05 * HBM_BYTES_PER_S  # a faster read than this is a fault of the probe
@@ -596,6 +621,12 @@ def main() -> None:
 
     # ---------------------------------------------------------------- phase 14
     training_phase(torch, model, card, fused_backbone_step, fused_segment_decode, dev)
+
+    # ---------------------------------------------------------------- phase 15
+    del model
+    torch.cuda.empty_cache()
+    mesh_launches, mesh_err = mesh_phase(torch, card)
+    errs["batch_decode_attention"] = max(errs["batch_decode_attention"], mesh_err)
     print(f"chip_smoke.py wall time: {time.monotonic() - t_start:.1f} s [{card}]", flush=True)
 
     def entry(name, source, replaces, n_launches):
@@ -608,7 +639,8 @@ def main() -> None:
 
     # Launches: each kernel's count over the main-path runs that reach it,
     # each counted from 0 just before its run (B=1 path, batch path, engine,
-    # probe entry point, the bw_probe and attn_micro entry points).
+    # probe entry point, the bw_probe and attn_micro entry points, and the
+    # mesh path's ranks).
     kernels = [
         entry("fused_backbone_step", "pocket_tts_tpu_torch/csrc/fused_backbone.cu",
               "pocket_tts_tpu/ops/fused_backbone.py:1080",
@@ -617,7 +649,7 @@ def main() -> None:
               "pocket_tts_tpu/ops/fused_segment.py:709", launches["fused_segment_decode"]),
         entry("batch_decode_attention", "pocket_tts_tpu_torch/csrc/batch_attention.cu",
               "pocket_tts_tpu/ops/batch_attention.py:189",
-              batch["launches"] + served["batch_decode_attention"]),
+              batch["launches"] + served["batch_decode_attention"] + mesh_launches),
         entry("row_write", "pocket_tts_tpu_torch/csrc/probes.cu", "scripts/mosaic_probe.py:41",
               probe["launches"]["row_write"]),
         entry("head_slice_weighted_sum", "pocket_tts_tpu_torch/csrc/probes.cu", "scripts/mosaic_probe.py:87",
@@ -654,16 +686,16 @@ def batch_attention_inputs(torch, dev, B=64, C=512, H=16, d=64, seed=2):
     return [t.to(dev) for t in (q, k.to(torch.bfloat16), v.to(torch.bfloat16), sp, qpos)]
 
 
-def compare_batch_attention(torch, dev, kernel, plain, cases, kinds=("bf16", "int8"), q_dtype=None) -> float:
+def compare_batch_attention(torch, dev, kernel, plain, cases, kinds=("bf16", "int8"), q_dtype=None, H=16) -> float:
     """Kernel vs plain version for each cache kind; `cases` holds (B, C,
     read_rows in decreasing order); the rows past a read limit below C are
-    poisoned in the cache. q is float32 unless q_dtype says otherwise.
-    Returns the largest error."""
+    poisoned in the cache. q is float32 unless q_dtype says otherwise; H
+    heads of 64. Returns the largest error."""
     from pocket_tts_tpu_torch.ops.attention import quantize_kv_rows
 
     worst = 0.0
     for B, C, reads in cases:
-        q, k, v, sp, qpos = batch_attention_inputs(torch, dev, B=B, C=C)
+        q, k, v, sp, qpos = batch_attention_inputs(torch, dev, B=B, C=C, H=H)
         q, z = q if q_dtype is None else q.to(q_dtype), zero_row_stream(B)
         for kind in kinds:
             if kind == "int8":
@@ -683,11 +715,11 @@ def compare_batch_attention(torch, dev, kernel, plain, cases, kinds=("bf16", "in
                 torch.cuda.synchronize()
                 err = max_err(out, ref)
                 zero = bool((out[z] == 0).all())
-                print(f"batch_decode_attention {kind} cache, {q.dtype} q, B={B} C={C} R={R}: max|err| {err:.3g} "
+                print(f"batch_decode_attention {kind} cache, {q.dtype} q, B={B} C={C} H={H} R={R}: max|err| {err:.3g} "
                       f"(tol {TOL_BATCH[kind]}), zero-row stream exactly 0: {zero}", flush=True)
                 if not (err <= TOL_BATCH[kind] and bool(torch.isfinite(out).all()) and zero
                         and out.dtype == ref.dtype):
-                    fail(f"batch_decode_attention {kind} B={B} C={C} R={R}: err {err:.4g}, or non-finite, "
+                    fail(f"batch_decode_attention {kind} B={B} C={C} H={H} R={R}: err {err:.4g}, or non-finite, "
                          f"or stream {z} not 0, or dtype {out.dtype} != {ref.dtype}")
                 worst = max(worst, err)
     return worst
@@ -1314,17 +1346,6 @@ def clone_phase(torch, model, card, step_kernel, segment_kernel, dev) -> None:
     torch.cuda.empty_cache()
 
 
-def _train_batch(torch, flow_lm, B: int, Tt: int, Tl: int, seed: int):
-    """Seeded tokens [B, Tt], latents [B, Tl, ldim] and EOS labels (1 on
-    each stream's last frame), on the CPU."""
-    gen = torch.Generator().manual_seed(seed)
-    tokens = torch.randint(0, flow_lm.n_bins, (B, Tt), generator=gen)
-    latents = torch.randn(B, Tl, flow_lm.ldim, generator=gen)
-    eos = torch.zeros(B, Tl)
-    eos[:, -1] = 1.0
-    return tokens, latents, eos
-
-
 def training_phase(torch, model, card, step_kernel, segment_kernel, dev) -> None:
     """Phase 14: fine-tuning at b6369a24 width: card/CPU parity of the loss
     and gradients, 20 timed AdamW steps, the train-state round trip, the
@@ -1346,6 +1367,7 @@ def training_phase(torch, model, card, step_kernel, segment_kernel, dev) -> None
         save_checkpoint,
     )
     from pocket_tts_tpu_torch.ops.fused_backbone import MAX_CAPACITY
+    from pocket_tts_tpu_torch.parallel.dryrun import train_batch
     from pocket_tts_tpu_torch.training import (
         adamw,
         flow_matching_loss,
@@ -1367,7 +1389,7 @@ def training_phase(torch, model, card, step_kernel, segment_kernel, dev) -> None
 
     # Parity: one loss and its gradients on the card and on the CPU, same
     # weights, batch and noise.
-    batch = _train_batch(torch, flow_lm, 2, 16, 32, seed=1)
+    batch = train_batch(flow_lm.n_bins, flow_lm.ldim, 2, 16, 32, seed=1)
     noise = flow_noise(torch.Generator().manual_seed(2), 2, 32, flow_lm.ldim)
 
     def loss_and_grads(where):
@@ -1396,7 +1418,7 @@ def training_phase(torch, model, card, step_kernel, segment_kernel, dev) -> None
     # Training: AdamW steps on one batch, each step's wall between CUDA events.
     state = init_train_state(flow_lm, map_tensors(params["flow_lm"], lambda t: t.to(dev)), adamw(1e-3))
     train_step = make_train_step(flow_lm)
-    tokens, latents, eos = (t.to(dev) for t in _train_batch(torch, flow_lm, 8, 32, 125, seed=3))
+    tokens, latents, eos = (t.to(dev) for t in train_batch(flow_lm.n_bins, flow_lm.ldim, 8, 32, 125, seed=3))
     rng = torch.Generator(device=dev).manual_seed(4)
     events = [torch.cuda.Event(enable_timing=True) for _ in range(TRAIN_STEPS + 1)]
     metrics = []
@@ -1553,6 +1575,132 @@ def training_phase(torch, model, card, step_kernel, segment_kernel, dev) -> None
     if lat_p.shape != lat_k.shape or not (e_max <= TOL_SEGMENT and e_mean <= TOL_SEGMENT_MEAN):
         fail(f"capacity gate: latents differ by {e_max:.4g} (mean {e_mean:.4g})")
     torch.cuda.empty_cache()
+
+
+def frame_errors(got, ref) -> list:
+    """Each 1920-sample frame's largest |err| over the streams that hold it,
+    relative to the stream's peak |audio|."""
+    import numpy as np
+
+    errs = [0.0] * (max(len(r) for r in ref) // 1920)
+    for g, r in zip(got, ref):
+        per = np.abs(g - r).reshape(-1, 1920).max(axis=1) / max(float(np.abs(r).max()), 1e-30)
+        errs[: len(per)] = np.maximum(errs[: len(per)], per).tolist()
+    return errs
+
+
+def divergence(errs: list) -> str:
+    first = next((f for f, e in enumerate(errs) if e > 1e-3), None)
+    return (f"{max(errs):.3g} of the peak, frame 0 {errs[0]:.3g}, first frame over 1e-3 "
+            f"{'none' if first is None else first} of {len(errs)}")
+
+
+def mesh_phase(torch, card) -> tuple[int, float]:
+    """Phase 15: dryrun_multichip(4) on 4 ranks sharing the card, and its
+    sharded generate_audio_batch and train step held against the same model
+    unsharded in this process; the batch kernel held against its plain
+    version on a rank's heads at the capacity and read limits the ranks
+    decoded with. Returns the batch kernel's launches on the ranks and its
+    largest error here."""
+    from unittest import mock
+
+    import numpy as np
+
+    from pocket_tts_tpu_torch.models.tts_model import TTSModel
+    from pocket_tts_tpu_torch.models.weights import named_leaves
+    from pocket_tts_tpu_torch.ops import batch_attention
+    from pocket_tts_tpu_torch.parallel.dryrun import DRYRUN_TEXTS, TRAIN_BATCH, dryrun_multichip, train_batch
+    from pocket_tts_tpu_torch.training import adamw, init_train_state, make_train_step
+    from pocket_tts_tpu_torch.training.flow_matching import flow_noise
+
+    t0 = time.monotonic()
+    out = dryrun_multichip(4)
+    wall = time.monotonic() - t0
+    where = "a card each" if out["backend"] == "nccl" else "sharing one card"
+    label = f"{len(out['launches'])} ranks {where} (dp={out['dp']}, tp={out['tp']}) over {out['backend']}"
+    walls = ", ".join(f"{k} {v:.2f} s" for k, v in out["walls"].items())
+    print(f"mesh: dryrun_multichip(4) {wall:.1f} s in all (spawn, kernel builds, model loads included); rank 0 walls: "
+          f"{walls} [{label}; {card}]", flush=True)
+    dev = torch.device("cuda")
+    layers, frames, total, kernel_err = 6, out["frames"], 0, 0.0
+    for kv in ("bf16", "int8"):
+        per_rank = [r[kv] for r in out["launches"]]
+        print(f"mesh ({kv} KV): batch_decode_attention launches per rank "
+              f"{[r['batch_decode_attention'] for r in per_rank]} for {frames} frames x {layers} layers, B=1 kernel "
+              f"launches per rank {[r['fused_backbone_step'] + r['fused_segment_decode'] for r in per_rank]}",
+              flush=True)
+        if any(r["batch_decode_attention"] != layers * frames or r["fused_backbone_step"] or r["fused_segment_decode"]
+               for r in per_rank):
+            fail(f"mesh ({kv} KV): every rank must attend through batch_decode_attention at every decode step "
+                 f"and launch no B=1 kernel: {per_rank}")
+        total += sum(r["batch_decode_attention"] for r in per_rank)
+        model = TTSModel.load_model(temp=0.0, eos_threshold=1e9, param_dtype="int8", device="cuda",
+                                    kv_int8=kv == "int8")
+        # The kernel on a rank's slice: B / dp streams and H / tp heads (rows of 512 elements, not 1024), at
+        # the capacity and every read limit the ranks decoded with.
+        gen = out["generation"][kv]
+        C, heads = gen["capacity"], model.config.flow_lm.transformer.num_heads // out["tp"]
+        reads = tuple(sorted({C if r is None else max(8, min(r, C)) for r in gen["read_limits"]}, reverse=True))
+        kernel_err = max(kernel_err, compare_batch_attention(
+            torch, dev, batch_attention.batch_decode_attention, batch_attention.batch_decode_attention_reference,
+            [(len(DRYRUN_TEXTS) // out["dp"], C, reads)], kinds=(kv,), H=heads))
+        voice = model.get_state_for_audio_prompt("alba")
+        t0 = time.monotonic()
+        ref = model.generate_audio_batch(voice, DRYRUN_TEXTS)
+        torch.cuda.synchronize()
+        ref_wall = time.monotonic() - t0
+        got = out["batch"][kv]
+        if [g.shape for g in got] != [r.shape for r in ref]:
+            fail(f"mesh ({kv} KV): stream lengths {[g.shape for g in got]} against {[r.shape for r in ref]}")
+        errs = [float(np.abs(g - r).max()) / max(float(np.abs(r).max()), 1e-30) for g, r in zip(got, ref)]
+        abs_err = max(float(np.abs(g - r).max()) for g, r in zip(got, ref))
+        print(f"mesh ({kv} KV): sharded generate_audio_batch of {len(got)} streams against the model unsharded: "
+              f"max |err| {abs_err:.3g}, {max(errs):.3g} of the stream's peak (tol {TOL_MESH_AUDIO[kv]}); walls "
+              f"{out['walls'][f'batch_{kv}']:.2f} s sharded [{label}], {ref_wall:.2f} s unsharded (first call) "
+              f"[{card}]", flush=True)
+        if max(errs) > TOL_MESH_AUDIO[kv]:
+            fail(f"mesh ({kv} KV): sharded audio differs by {max(errs):.4g} of the peak")
+        # Witness of the gap's kind: the same unsharded model with its batch attention on the plain sdpa_slots
+        # (the kernel's rounding points, another summation order) against it on the kernel, and where each gap
+        # opens over the frames.
+        with mock.patch.object(batch_attention, "kernel_takes", lambda head_dim, device: False):
+            plain = model.generate_audio_batch(voice, DRYRUN_TEXTS)
+        print(f"mesh ({kv} KV) witness: sharded against unsharded {divergence(frame_errors(got, ref))}; unsharded "
+              f"with plain attention against unsharded with the kernel {divergence(frame_errors(plain, ref))}",
+              flush=True)
+        del model, voice
+        torch.cuda.empty_cache()
+
+    model = TTSModel.load_model(device="cuda")  # float32, seed 0: the ranks' weights before sharding
+    flow_lm = model.flow_lm
+    state = init_train_state(flow_lm, model.params["flow_lm"], adamw(1e-3))
+    del model
+    B, Tt, Tl = TRAIN_BATCH
+    batch = [t.to(dev) for t in train_batch(flow_lm.n_bins, flow_lm.ldim, B, Tt, Tl, seed=3)]
+    noise = tuple(t.to(dev) for t in flow_noise(torch.Generator().manual_seed(4), B, Tl, flow_lm.ldim))
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    state, metrics = make_train_step(flow_lm)(state, None, *batch, noise=noise)
+    torch.cuda.synchronize()
+    step_wall = time.monotonic() - t0
+    loss = float(metrics["loss"])
+    loss_rel = abs(out["train"]["loss"] - loss) / abs(loss)
+    grad_rel, worst = 0.0, ""
+    for name, leaf in named_leaves(state.params):
+        ref = leaf.grad.cpu().numpy()
+        scale, diff = float(np.abs(ref).max()), float(np.abs(out["train"]["grads"][name] - ref).max())
+        rel = diff / scale if scale > 0 else (0.0 if diff == 0 else float("inf"))
+        if rel > grad_rel:
+            grad_rel, worst = rel, name
+    print(f"mesh train step B={B} Tt={Tt} Tl={Tl} float32: loss {out['train']['loss']:.6f} sharded vs {loss:.6f} "
+          f"unsharded (rel {loss_rel:.3g}, tol {TOL_TRAIN_LOSS}); largest gradient difference {grad_rel:.3g} of its "
+          f"leaf's max |value| ({worst}; tol {TOL_TRAIN_GRAD}); walls {out['walls']['train_step']:.3f} s sharded "
+          f"(first step) [{label}], {step_wall:.3f} s unsharded (first step) [{card}]", flush=True)
+    if not (loss_rel <= TOL_TRAIN_LOSS and grad_rel <= TOL_TRAIN_GRAD):
+        fail(f"mesh train step: loss rel {loss_rel:.3g}, gradient {grad_rel:.3g} at {worst}")
+    del state
+    torch.cuda.empty_cache()
+    return total, kernel_err
 
 
 def _expected_frames(model, text: str, text_pad: int) -> int:

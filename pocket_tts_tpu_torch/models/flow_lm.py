@@ -17,6 +17,10 @@ carry packed kernel weights under params["fused_backbone"] (and
 "fused_flow"), and B=1 decode steps over a bf16 cache of a capacity the
 kernel takes then run ops/fused_backbone.fused_backbone_step; batch steps
 (B > 1) attend through ops/batch_attention.batch_decode_attention.
+
+On a mesh (`mesh`, parallel/mesh.py) the backbone runs this rank's heads and
+feed-forward units, its caches hold those heads, and the state holds this
+rank's streams; the B=1 kernels, which take the whole weights, stay off.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from pocket_tts_tpu_torch.ops.linear import linear
 from pocket_tts_tpu_torch.ops.norms import layer_norm
 from pocket_tts_tpu_torch.ops.sampling import lsd_decode
 from pocket_tts_tpu_torch.ops.transformer import StreamingTransformer
+from pocket_tts_tpu_torch.parallel.mesh import Mesh
 from pocket_tts_tpu_torch.utils.transfer import host_to_device
 
 Params = dict
@@ -48,6 +53,7 @@ class FlowLMModel:
     config: FlowLMConfig
     latent_dim: int
     speaker_dim: int = 512
+    mesh: Optional[Mesh] = None
 
     @property
     def dim(self) -> int:
@@ -71,6 +77,7 @@ class FlowLMModel:
             dim_feedforward=int(t.d_model * t.hidden_scale),
             max_period=float(t.max_period),
             kind="flow_lm",
+            mesh=self.mesh,
         )
 
     @property
@@ -174,12 +181,14 @@ class FlowLMModel:
         return state, next_latent, eos_logits > eos_threshold
 
     def fused_step_ok(self, params: Params, state: State, B: int) -> bool:
-        """The JAX package's dispatch rule for the per-frame kernel: B == 1,
-        packed int8 weights, a bf16 cache (the kernel carries no int8-KV
-        scales) whose capacity the kernel takes (larger caches decode on the
-        plain path, as the JAX package's fall back to XLA)."""
+        """The JAX package's dispatch rule for the per-frame kernel: no mesh
+        (the kernel takes the whole weights), B == 1, packed int8 weights, a
+        bf16 cache (the kernel carries no int8-KV scales) whose capacity the
+        kernel takes (larger caches decode on the plain path, as the JAX
+        package's fall back to XLA)."""
         k = state["transformer"]["layers"][0]["k"]
-        return "fused_backbone" in params and B == 1 and k.dtype != torch.int8 and capacity_ok(k.shape[1])
+        return (self.mesh is None and "fused_backbone" in params and B == 1 and k.dtype != torch.int8
+                and capacity_ok(k.shape[1]))
 
     # ------------------------------------------------------------------ state utils
 

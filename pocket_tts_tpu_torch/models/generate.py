@@ -49,8 +49,8 @@ def initial_carry(batch: int, ldim: int, frames_after_eos, max_gen, device) -> d
 
 def segment_kernel_ok(flow_lm: FlowLMModel, flow_params, flow_state, lsd_decode_steps: int, S: int) -> bool:
     """The JAX package's dispatch rule for the whole-segment kernel: the
-    per-frame kernel's (which holds the kernels' capacity limit), one flow
-    step and whole 8-frame groups."""
+    per-frame kernel's (which holds the kernels' capacity limit and keeps
+    them off on a mesh), one flow step and whole 8-frame groups."""
     return (flow_lm.fused_step_ok(flow_params, flow_state, len(flow_state["pos"])) and lsd_decode_steps == 1
             and "fused_flow" in flow_params and S % 8 == 0)
 

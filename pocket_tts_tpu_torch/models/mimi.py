@@ -14,6 +14,10 @@ Encode (`encode_to_latent`, non-streaming over the whole prompt): the
 waveform, end-padded to whole 1920-sample frames, through the SEANet encoder
 (200 Hz), the encoder transformer and the stride-16 downsampling conv
 (12.5 Hz).
+
+On a mesh (`mesh`) both transformers run this rank's heads and feed-forward
+units (ops/transformer.py), and the decoder's ring buffers hold those heads;
+the convolutions run whole on every rank.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from pocket_tts_tpu_torch.models.seanet import SEANetDecoder, SEANetEncoder
 from pocket_tts_tpu_torch.ops.attention import _uniform
 from pocket_tts_tpu_torch.ops.conv import StreamingConv1d, StreamingConvTranspose1d, conv1d, pad_for_conv1d
 from pocket_tts_tpu_torch.ops.transformer import ProjectedTransformer
+from pocket_tts_tpu_torch.parallel.mesh import Mesh
 
 Params = dict
 State = dict
@@ -38,6 +43,7 @@ class MimiModel:
     """Static description of the codec; params/state are explicit dicts."""
 
     config: MimiConfig
+    mesh: Mesh | None = None
 
     @property
     def sample_rate(self) -> int:
@@ -88,6 +94,7 @@ class MimiModel:
             context=t.context,
             max_period=t.max_period,
             dim_feedforward=t.dim_feedforward,
+            mesh=self.mesh,
         )
 
     @property

@@ -1,6 +1,6 @@
 """End-to-end TTS pipeline: text -> FlowLM decode -> Mimi
-(port of pocket_tts_tpu/models/tts_model.py without the engine and the
-mesh; reference: pocket_tts_mlx/models/tts_model.py:54-518).
+(port of pocket_tts_tpu/models/tts_model.py; reference:
+pocket_tts_mlx/models/tts_model.py:54-518).
 
 `load_model`, `get_state_for_audio_prompt` (a predefined voice, or voice
 cloning from a WAV file or a waveform array through the Mimi encoder and
@@ -13,6 +13,13 @@ and B streams alike (`_generate_batch_frames`); frames decode in segments
 (models/generate.run_segment), and the host reads audio and EOS once per
 streamed segment and once per bulk generation. Batch segments read only the
 128-bucketed front of the cache that holds written rows (`read_limit`).
+
+On a mesh (`load_model(mesh=...)` or `dp=` / `tp=`; parallel/) every rank
+holds its tp shard of the weights (Megatron feed-forward and attention
+heads), every generation computes its schedule, token pad and capacity from
+the whole batch, as the JAX package's single controller does, each rank
+decodes its dp slice of the streams, and every rank returns the whole
+batch's audio. The B=1 kernels stay off under a mesh, as in the JAX package.
 
 `save_checkpoint` exports the params as a safetensors file that
 `load_model` reads back (the end of fine-tuning, training/), `profile`
@@ -62,12 +69,15 @@ from pocket_tts_tpu_torch.models.weights import (
     cast_serving_dtype,
     load_state_dict,
     map_tensors,
+    named_leaves,
     quantize_int8,
     save_checkpoint,
 )
 from pocket_tts_tpu_torch.ops.fused_backbone import pack_backbone
 from pocket_tts_tpu_torch.ops.fused_segment import pack_flow
 from pocket_tts_tpu_torch.ops.sampling import sample_noise
+from pocket_tts_tpu_torch.parallel.collectives import all_gather_dp, barrier
+from pocket_tts_tpu_torch.parallel.mesh import Mesh, dp_range, gather_params, shard_batch_tree, shard_params
 from pocket_tts_tpu_torch.utils.assets import download_if_necessary
 from pocket_tts_tpu_torch.utils.safetensors import load_safetensors
 from pocket_tts_tpu_torch.utils.timing import size_of_pytree
@@ -134,7 +144,9 @@ class ModelState:
     tree, the host mirror of the stream positions, and the cache write index.
 
     The kernels append into the caches in place, so generation with
-    copy_state=True works on a clone and leaves this state bit-identical."""
+    copy_state=True works on a clone and leaves this state bit-identical.
+    On a mesh the tree holds the whole batch on every rank, with this
+    rank's heads."""
 
     def __init__(self, tree: dict, pos: list[int], written: int | None = None):
         self.tree = tree
@@ -167,7 +179,7 @@ class TTSModel:
     def __init__(self, flow_lm, mimi, params, tokenizer, config: Config, temp=DEFAULT_TEMPERATURE,
                  lsd_decode_steps=DEFAULT_LSD_DECODE_STEPS, noise_clamp=DEFAULT_NOISE_CLAMP,
                  eos_threshold=DEFAULT_EOS_THRESHOLD, seed: int = 0, device="cuda", state_dtype=torch.float32,
-                 transfer_pcm16: bool = False, kv_int8: bool = False):
+                 transfer_pcm16: bool = False, kv_int8: bool = False, mesh: Optional[Mesh] = None):
         self.flow_lm = flow_lm
         self.mimi = mimi
         self.params = params
@@ -188,6 +200,7 @@ class TTSModel:
         # cache leave the B=1 kernels (they carry no scales).
         self.kv_int8 = bool(kv_int8)
         self.transfer_pcm16 = bool(transfer_pcm16)
+        self.mesh = mesh  # None: one device (parallel/mesh.py)
         self.random_init = False
         # False when the weights came from the checkpoint without voice
         # cloning (load_model's fallback): cloning from a file is refused.
@@ -230,6 +243,9 @@ class TTSModel:
         allow_random_init: bool = True,
         transfer_pcm16: bool = False,
         kv_int8: bool = False,
+        mesh: Optional[Mesh] = None,
+        dp: int = 1,
+        tp: int = 1,
     ) -> "TTSModel":
         """Build the model and load weights (random init, seeded, when no
         checkpoint is reachable and allow_random_init).
@@ -237,8 +253,15 @@ class TTSModel:
         param_dtype "float32", "bfloat16", or "int8" (bf16 serving plus
         weight-only int8 FlowLM matmuls, decoded by the CUDA kernels).
         device: the card by default; without one this raises unless the
-        caller passes device="cpu". kv_int8: int8 FlowLM KV cache."""
+        caller passes device="cpu". kv_int8: int8 FlowLM KV cache.
+        mesh (or dp= / tp=, which make one over the process group that is
+        up, as parallel/launch.py starts it): build this rank's part of a
+        sharded model (see from_params)."""
         device = _resolve_device(device)
+        if mesh is None and (dp > 1 or tp > 1):
+            from pocket_tts_tpu_torch.parallel.mesh import make_mesh
+
+            mesh = make_mesh(dp, tp, device.type)
         if str(config).endswith(".yaml"):
             cfg = load_config(Path(config))
         else:
@@ -252,28 +275,40 @@ class TTSModel:
         model = cls.from_params(cfg, params, tokenizer, param_dtype, device, temp=temp,
                                 lsd_decode_steps=lsd_decode_steps, noise_clamp=noise_clamp,
                                 eos_threshold=eos_threshold, seed=seed, transfer_pcm16=transfer_pcm16,
-                                kv_int8=kv_int8)
+                                kv_int8=kv_int8, mesh=mesh)
         model.random_init = random_init
         model.has_voice_cloning = has_voice_cloning
         return model
 
     @classmethod
     def from_params(cls, cfg: Config, params: dict, tokenizer, param_dtype: str = "float32", device="cuda",
-                    **kwargs) -> "TTSModel":
+                    mesh: Optional[Mesh] = None, **kwargs) -> "TTSModel":
         """Build a model from a float32 params tree: apply the serving dtype
         (with its float32 islands), int8-quantize and pack the kernel weights
         for param_dtype "int8", and move everything to `device` (the card
-        unless device="cpu"; raises when there is no card)."""
+        unless device="cpu"; raises when there is no card).
+
+        On a mesh (its device of `device`'s type) the cast and quantized tree
+        is cut to this rank's tp shard (parallel/mesh.shard_params) and no
+        kernel weights are packed. tp must divide every head count: the port
+        runs whole heads on each rank (ValueError otherwise)."""
         device = _resolve_device(device)
-        flow_lm = FlowLMModel(cfg.flow_lm, latent_dim=cfg.mimi.quantizer.dimension, speaker_dim=cfg.mimi.seanet.dimension)
+        if mesh is not None:
+            _check_mesh(cfg, mesh, device)
+            device = mesh.device
+        flow_lm = FlowLMModel(cfg.flow_lm, latent_dim=cfg.mimi.quantizer.dimension,
+                              speaker_dim=cfg.mimi.seanet.dimension, mesh=mesh)
         quantize = param_dtype == "int8"
         serving = torch.bfloat16 if quantize else getattr(torch, param_dtype)
         if serving != torch.float32:
             params = cast_serving_dtype(params, serving)
         if quantize:
             params = quantize_int8(params)
-        params = map_tensors(params, lambda t: t.to(device))
-        if quantize:
+        if mesh is not None:
+            params = shard_params(mesh, params)
+        else:
+            params = map_tensors(params, lambda t: t.to(device))
+        if quantize and mesh is None:
             fl = params["flow_lm"]
             t = cfg.flow_lm.transformer
             fl["fused_backbone"] = pack_backbone(fl, t.num_heads, float(t.max_period))
@@ -283,15 +318,21 @@ class TTSModel:
                     "kv_int8=True keeps single-stream decodes off the B=1 CUDA kernels (they carry no int8-KV "
                     "scales); use kv_int8 for batch serving, not for single-stream models."
                 )
-        return cls(flow_lm, MimiModel(cfg.mimi), params, tokenizer, config=cfg, device=device,
-                   state_dtype=serving, **kwargs)
+        return cls(flow_lm, MimiModel(cfg.mimi, mesh), params, tokenizer, config=cfg, device=device,
+                   state_dtype=serving, mesh=mesh, **kwargs)
 
     def save_checkpoint(self, path) -> int:
         """Write the current params as a torch-layout safetensors file that
         load_model reads through a local weights_path (a model loaded with
         param_dtype "int8" is refused; export from "float32"). Returns the
-        tensor count."""
-        return save_checkpoint(self.params, path)
+        tensor count. On a mesh every rank takes part: the shards are
+        gathered and rank 0 writes the same mesh-free file."""
+        if self.mesh is None or any(name.endswith("weight.q") for name, _ in named_leaves(self.params)):
+            return save_checkpoint(self.params, path)  # an int8 tree is refused on every rank, before a collective
+        params = gather_params(self.mesh, self.params)
+        count = save_checkpoint(params, path) if self.mesh.rank == 0 else sum(1 for _ in named_leaves(params))
+        barrier(self.mesh)  # the file is whole before any rank returns
+        return count
 
     def profile(self, log_dir: Union[str, Path]):
         """Context manager: a torch.profiler trace of everything run inside
@@ -492,6 +533,13 @@ class TTSModel:
         B = model_state.batch_size
         if len(texts) != B or len(frames_after_eos) != B:
             raise ValueError(f"model_state holds {B} stream(s) but got {len(texts)} text(s)")
+        # On a mesh this rank decodes streams [lo, hi) (all B where dp does
+        # not divide B); the schedule, token pad and capacity are the whole
+        # batch's on every rank, so every rank runs the same collectives.
+        lo, hi = dp_range(self.mesh, B)
+        sharded = (lo, hi) != (0, B)
+        if sharded and not (copy_state and bulk):
+            raise ValueError("a batch split over dp decodes in bulk from a copy of its state (generate_audio_batch)")
         token_lists = [self.conditioner.prepare(t).tokens[0].tolist() for t in texts]
         n_tok = [len(t) for t in token_lists]
         max_gen = [
@@ -519,17 +567,19 @@ class TTSModel:
         capacity = self.flow_lm.state_capacity(tree)
         if not copy_state:
             model_state.tree, model_state.written = tree, written
+        if sharded:
+            tree = shard_batch_tree(self.mesh, tree, B)
 
         max_chunk = max(sched, default=1) if bulk else _stream_steady(DEFAULT_SEGMENT_FRAMES)
-        mimi_state = self._warm_mimi_state(B, max_chunk, warmup_frames)
+        mimi_state = self._warm_mimi_state(hi - lo, max_chunk, warmup_frames)
 
         t0 = time.monotonic()
         tok = torch.zeros(B, t_pad, dtype=torch.long)
         for b, toks in enumerate(token_lists):
             tok[b, : len(toks)] = torch.tensor(toks, dtype=torch.long)
         fl = self.params["flow_lm"]
-        tree = self.flow_lm.prefill(fl, tree, self.flow_lm.embed_text(fl, tok.to(self.device)), n_tok)
-        carry = initial_carry(B, self.flow_lm.ldim, list(frames_after_eos), max_gen, self.device)
+        tree = self.flow_lm.prefill(fl, tree, self.flow_lm.embed_text(fl, tok[lo:hi].to(self.device)), n_tok[lo:hi])
+        carry = initial_carry(hi - lo, self.flow_lm.ldim, list(frames_after_eos)[lo:hi], max_gen[lo:hi], self.device)
 
         # Read-limit buckets (B > 1): each segment's attention reads only
         # the 128-bucketed front of the cache that holds written rows.
@@ -545,7 +595,8 @@ class TTSModel:
                 read_limit = r if r < capacity else None
             read_limits.append(read_limit)
             written_host += seg
-            noise = sample_noise(self._gen, (seg, B, self.flow_lm.ldim), self.temp, self.noise_clamp, self.device)
+            noise = sample_noise(self._gen, (seg, B, self.flow_lm.ldim), self.temp, self.noise_clamp,
+                                 self.device)[:, lo:hi]
             tree, mimi_state, carry, audio, emit, done = run_segment(
                 self.flow_lm, self.mimi, self.params, tree, mimi_state, carry, noise,
                 self.lsd_decode_steps, self.eos_threshold, emit_pcm16=self.transfer_pcm16, read_limit=read_limit,
@@ -554,23 +605,24 @@ class TTSModel:
             if bulk:
                 pending.append((audio, emit))
                 continue
-            for frames, emit_s in self._emitted(audio.cpu().numpy(), emit.cpu().numpy()):
+            for frames, emit_s in self._emitted(*self._whole_batch(audio, emit, sharded)):
                 emitted_samples += int(emit_s.sum()) * frames.shape[-1]
                 yield frames, emit_s
             if bool(done):
                 break
         for audio, emit in pending:
-            for frames, emit_s in self._emitted(audio.cpu().numpy(), emit.cpu().numpy()):
+            for frames, emit_s in self._emitted(*self._whole_batch(audio, emit, sharded)):
                 emitted_samples += int(emit_s.sum()) * frames.shape[-1]
                 yield frames, emit_s
         self.last_generation = {"batch": B, "frames": dispatched, "capacity": capacity, "read_limits": read_limits}
 
-        # Continuation semantics: FlowLM ran min(eos_step + frames_after_eos
-        # + 1, max_gen) steps per stream in the reference loop; rewind past
-        # the extra masked steps and invalidate the cache slots they wrote.
-        eos_step = carry["eos_step"].cpu().numpy()
-        steps_entered = np.minimum(np.minimum(eos_step + np.asarray(frames_after_eos) + 1, max_gen), dispatched)
         if not copy_state:
+            # Continuation semantics: FlowLM ran min(eos_step +
+            # frames_after_eos + 1, max_gen) steps per stream in the reference
+            # loop; rewind past the extra masked steps and invalidate the
+            # cache slots they wrote.
+            eos_step = carry["eos_step"].cpu().numpy()
+            steps_entered = np.minimum(np.minimum(eos_step + np.asarray(frames_after_eos) + 1, max_gen), dispatched)
             new_pos = [int(p + n + s) for p, n, s in zip(model_state.pos, n_tok, steps_entered)]
             model_state.tree = self.flow_lm.invalidate_after(tree, new_pos)
             model_state.pos = new_pos
@@ -581,6 +633,15 @@ class TTSModel:
             emitted_samples / B * 1000 // self.sample_rate, int(elapsed * 1000),
             emitted_samples / B / self.sample_rate / max(elapsed, 1e-9),
         )
+
+    def _whole_batch(self, audio: torch.Tensor, emit: torch.Tensor, sharded: bool) -> tuple[np.ndarray, np.ndarray]:
+        """A segment's audio and emit flags on the host, for the whole batch
+        (gathered over dp when this rank decoded a slice of it)."""
+        audio_np, emit_np = audio.cpu().numpy(), emit.cpu().numpy()
+        if sharded:
+            parts = all_gather_dp(self.mesh, (audio_np, emit_np))
+            audio_np, emit_np = (np.concatenate([p[i] for p in parts]) for i in (0, 1))
+        return audio_np, emit_np
 
     @staticmethod
     def _emitted(audio_np: np.ndarray, emit_np: np.ndarray):
@@ -625,6 +686,18 @@ def stack_states(flow_lm: FlowLMModel, states: Sequence[ModelState]) -> ModelSta
     pos = [p for s in states for p in s.pos]
     tree = {"transformer": {"layers": layers, "widx": max(t["widx"] for t in trees)}, "pos": list(pos)}
     return ModelState(tree, pos, written=max(s.written for s in states))
+
+
+def _check_mesh(cfg: Config, mesh: Mesh, device: torch.device) -> None:
+    """Raise ValueError unless the mesh sits on `device`'s type and its tp
+    divides every head count (the port runs whole heads on each rank; the
+    JAX package, through GSPMD, also runs where a head is split)."""
+    if mesh.device.type != device.type:
+        raise ValueError(f"the mesh's ranks sit on {mesh.device}, not on {device.type}")
+    for name, heads in (("FlowLM", cfg.flow_lm.transformer.num_heads), ("Mimi", cfg.mimi.transformer.num_heads)):
+        if heads % mesh.tp:
+            raise ValueError(f"tp={mesh.tp} does not divide the {heads} {name} attention heads: the port runs whole "
+                             "heads on each rank (the JAX package would split a head across devices)")
 
 
 def _load_weights(params: dict, cfg: Config, allow_random_init: bool) -> tuple[bool, bool]:

@@ -10,9 +10,10 @@
   An int8 cache (batch serving) stores symmetric int8 rows with one float32
   scale per row (`k_scale` / `v_scale`, [B, C]). Batch decode steps (T == 1,
   B > 1) attend through ops/batch_attention.batch_decode_attention over the
-  full cache, reading its first `read_limit` rows; every other call
-  (prefill, T > 1, B == 1) runs the dense `sdpa_slots`. Its `forward` is
-  the cache-free causal form over a whole sequence (training).
+  full cache, reading its first `read_limit` rows (on the card where the
+  kernel takes the head size: batch_attention.kernel_takes); every other
+  call (prefill, T > 1, B == 1) runs the dense `sdpa_slots`. Its `forward`
+  is the cache-free causal form over a whole sequence (training).
 - WindowedRingAttention (Mimi codec): a shift-append ring kept ordered
   oldest -> newest; slot positions are arithmetic, and long chunks attend in
   128-query blocks over a (context + 128)-wide key band. Its `forward` is
@@ -22,6 +23,13 @@
 Numerics mirror the JAX package: scores, softmax and accumulation in
 float32, q cast to the cache dtype before the score product, softmax
 weights cast to the cache dtype before the PV product.
+
+On a mesh (`mesh`, parallel/mesh.py) each rank runs the H / tp heads whose
+q, k and v rows of `in_proj` it holds, keeps their caches ([B, C, H / tp,
+d]), and sums `out_proj`'s partial outputs over tp (parallel/collectives.py).
+An int8 row's scale is the absmax over all H heads: the local maximum, then
+a maximum over tp, as GSPMD reduces the JAX package's max over the head
+axis.
 """
 
 from __future__ import annotations
@@ -31,8 +39,11 @@ from dataclasses import dataclass
 
 import torch
 
+from pocket_tts_tpu_torch.ops import batch_attention
 from pocket_tts_tpu_torch.ops.linear import linear, qkv_proj
 from pocket_tts_tpu_torch.ops.rope import apply_rope, rope_angles
+from pocket_tts_tpu_torch.parallel.collectives import copy_to_tp, max_over_tp, tp_active
+from pocket_tts_tpu_torch.parallel.mesh import Mesh
 
 Params = dict
 State = dict
@@ -73,12 +84,15 @@ def sdpa_slots(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid: torch.T
     return out.to(q.dtype)
 
 
-def quantize_kv_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def quantize_kv_rows(x: torch.Tensor, amax: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-row int8 quantisation of [B, T, H, d] K/V rows: one
     absmax scale per row over its H*d values (1 for an all-zero row), codes
-    rounded half to even and clipped to +-127 -> (int8 codes, float32 [B, T])."""
+    rounded half to even and clipped to +-127 -> (int8 codes, float32 [B, T]).
+    `amax` [B, T] gives the rows' absmax where x holds only some of a row's
+    heads (a tp rank's)."""
     xf = x.float()
-    amax = xf.abs().amax(dim=(2, 3))
+    if amax is None:
+        amax = xf.abs().amax(dim=(2, 3))
     scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
     codes = torch.clamp(torch.round(xf / scale[:, :, None, None]), -127, 127).to(torch.int8)
     return codes, scale
@@ -96,6 +110,21 @@ def _init_proj_params(gen: torch.Generator, embed_dim: int, dtype) -> Params:
     }
 
 
+def _local_heads(num_heads: int, mesh: Mesh | None) -> int:
+    return num_heads // mesh.tp if mesh is not None else num_heads
+
+
+def _project_qkv(params: Params, x: torch.Tensor, num_heads: int, mesh: Mesh | None):
+    """q, k, v [B, T, H_local, d] of this rank's heads."""
+    return _split_qkv(qkv_proj(copy_to_tp(mesh, x), params["in_proj"]["weight"]), _local_heads(num_heads, mesh))
+
+
+def _project_out(params: Params, out: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
+    """out_proj of the heads' outputs [B, T, H_local, d], summed over tp."""
+    B, T = out.shape[:2]
+    return linear(out.reshape(B, T, -1), params["out_proj"]["weight"], mesh=mesh)
+
+
 @dataclass(frozen=True)
 class CausalKVAttention:
     """Full-history causal attention with the slot-indexed KV cache."""
@@ -103,6 +132,7 @@ class CausalKVAttention:
     embed_dim: int
     num_heads: int
     max_period: float = 10_000.0
+    mesh: Mesh | None = None
 
     @property
     def head_dim(self) -> int:
@@ -112,8 +142,9 @@ class CausalKVAttention:
         return _init_proj_params(gen, self.embed_dim, dtype)
 
     def init_state(self, batch_size: int, capacity: int, dtype=torch.float32, device="cpu") -> State:
-        """dtype=torch.int8 gives the int8 cache with its per-row scales."""
-        shape = (batch_size, capacity, self.num_heads, self.head_dim)
+        """dtype=torch.int8 gives the int8 cache with its per-row scales; on
+        a mesh the caches hold this rank's heads."""
+        shape = (batch_size, capacity, _local_heads(self.num_heads, self.mesh), self.head_dim)
         state = {
             "k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
@@ -140,14 +171,17 @@ class CausalKVAttention:
         R = max(8, min(read_limit, C)); the caller guarantees that every
         valid row, this call's included, lies below it."""
         B, T, _ = x.shape
-        q, k, v = _split_qkv(qkv_proj(x, params["in_proj"]["weight"]), self.num_heads)
+        q, k, v = _project_qkv(params, x, self.num_heads, self.mesh)
         q, k = apply_rope(q, k, rope_cache)
         C = state["k"].shape[1]
         w = min(max(int(widx), 0), C - T)  # dynamic_update_slice clamps its start
         int8_kv = state["k"].dtype == torch.int8
         if int8_kv:
-            k_codes, k_scale = quantize_kv_rows(k)
-            v_codes, v_scale = quantize_kv_rows(v)
+            amax = (None, None)
+            if tp_active(self.mesh):  # k's and v's row maxima over every head, in one collective
+                amax = max_over_tp(self.mesh, torch.stack([t.float().abs().amax(dim=(2, 3)) for t in (k, v)]))
+            k_codes, k_scale = quantize_kv_rows(k, amax[0])
+            v_codes, v_scale = quantize_kv_rows(v, amax[1])
             state["k"][:, w : w + T] = k_codes
             state["v"][:, w : w + T] = v_codes
             state["k_scale"][:, w : w + T] = k_scale
@@ -160,30 +194,28 @@ class CausalKVAttention:
         sp = state["slot_pos"][:, :R]
         ks = state["k_scale"][:, :R] if int8_kv else None
         vs = state["v_scale"][:, :R] if int8_kv else None
-        if T == 1 and B > 1:
-            from pocket_tts_tpu_torch.ops.batch_attention import batch_decode_attention
-
+        if T == 1 and B > 1 and batch_attention.kernel_takes(self.head_dim, state["k"].device):
             # The full cache buffers go in; the kernel reads rows [:R] only.
-            out = batch_decode_attention(
+            out = batch_attention.batch_decode_attention(
                 q.transpose(1, 2), state["k"], state["v"], sp, positions[:, 0], ks, vs,
                 read_rows=R,
             ).transpose(1, 2)
         else:
             valid = (sp[:, None, :] >= 0) & (sp[:, None, :] <= positions[:, :, None])  # [B, T, R]
             out = sdpa_slots(q, state["k"][:, :R], state["v"][:, :R], valid[:, None], ks, vs)
-        return linear(out.reshape(B, T, self.embed_dim), params["out_proj"]["weight"])
+        return _project_out(params, out, self.mesh)
 
     def forward(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         """Cache-free causal attention over a whole sequence [B, T, E] (the
         training path; decoding uses the cached __call__): RoPE at positions
         0..T-1, query i attends to keys j <= i."""
         B, T, _ = x.shape
-        q, k, v = _split_qkv(qkv_proj(x, params["in_proj"]["weight"]), self.num_heads)
+        q, k, v = _project_qkv(params, x, self.num_heads, self.mesh)
         positions = torch.arange(T, dtype=torch.int32, device=x.device)[None, :].expand(B, T)
         q, k = apply_rope(q, k, rope_angles(positions, self.head_dim, self.max_period))
         idx = torch.arange(T, device=x.device)
         out = sdpa_slots(q, k, v, (idx[None, :] <= idx[:, None])[None, None])
-        return linear(out.reshape(B, T, self.embed_dim), params["out_proj"]["weight"])
+        return _project_out(params, out, self.mesh)
 
 
 @dataclass(frozen=True)
@@ -197,6 +229,7 @@ class WindowedRingAttention:
     num_heads: int
     context: int
     max_period: float = 10_000.0
+    mesh: Mesh | None = None
 
     _QBLOCK = 128  # query-block length of the banded form
 
@@ -208,7 +241,7 @@ class WindowedRingAttention:
         return _init_proj_params(gen, self.embed_dim, dtype)
 
     def init_state(self, batch_size: int, capacity: int, dtype=torch.float32, device="cpu") -> State:
-        shape = (batch_size, capacity, self.num_heads, self.head_dim)
+        shape = (batch_size, capacity, _local_heads(self.num_heads, self.mesh), self.head_dim)
         return {
             "k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
@@ -227,13 +260,13 @@ class WindowedRingAttention:
         capacity = state["k"].shape[1]
         if capacity < self.context + T:
             raise ValueError("ring must retain a full window plus the new chunk")
-        q, k, v = _split_qkv(qkv_proj(x, params["in_proj"]["weight"]), self.num_heads)
+        q, k, v = _project_qkv(params, x, self.num_heads, self.mesh)
         q, k = apply_rope(q, k, rope_cache)
         # Slot j then holds absolute position (pos0 + T) - capacity + j.
         state["k"] = torch.cat([state["k"][:, T:], k.to(state["k"].dtype)], dim=1)
         state["v"] = torch.cat([state["v"][:, T:], v.to(state["v"].dtype)], dim=1)
         out = self._banded_sdpa(q, state["k"], state["v"], pos0, positions)
-        return linear(out.reshape(B, T, self.embed_dim), params["out_proj"]["weight"])
+        return _project_out(params, out, self.mesh)
 
     def _valid(self, slot_pos: torch.Tensor, qpos: torch.Tensor) -> torch.Tensor:
         """slot_pos [B, W], qpos [B, Tq] -> mask [B, 1, Tq, W]."""
@@ -274,10 +307,10 @@ class WindowedRingAttention:
         RoPE at positions 0..T-1, query i attends to keys j with
         0 <= i - j < context (reference: pocket_tts_mlx/modules/attention.py:210-213)."""
         B, T, _ = x.shape
-        q, k, v = _split_qkv(qkv_proj(x, params["in_proj"]["weight"]), self.num_heads)
+        q, k, v = _project_qkv(params, x, self.num_heads, self.mesh)
         positions = torch.arange(T, dtype=torch.int32, device=x.device)[None, :].expand(B, T)
         q, k = apply_rope(q, k, rope_angles(positions, self.head_dim, self.max_period))
         idx = torch.arange(T, device=x.device)
         delta = idx[:, None] - idx[None, :]
         out = sdpa_slots(q, k, v, ((delta >= 0) & (delta < self.context))[None, None])
-        return linear(out.reshape(B, T, self.embed_dim), params["out_proj"]["weight"])
+        return _project_out(params, out, self.mesh)

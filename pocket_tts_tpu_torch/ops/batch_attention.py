@@ -29,16 +29,20 @@ split.
 `batch_decode_attention` launches the kernel for CUDA tensors (or raises)
 and runs `batch_decode_attention_reference`, the plain PyTorch version, for
 CPU tensors. `batch_decode_attention.launches` counts kernel launches.
+`kernel_takes` is the route of ops/attention's batch decode: the kernel
+takes heads of HEAD_DIM only.
 """
 
 from __future__ import annotations
 
 import functools
+import logging
 
 import torch
 
-from pocket_tts_tpu_torch.ops.attention import sdpa_slots
+logger = logging.getLogger(__name__)
 
+HEAD_DIM = 64  # the one head size the CUDA kernel takes (the b6369a24 FlowLM's)
 _KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _Q_KINDS = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -136,8 +140,29 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def kernel_takes(head_dim: int, device: torch.device) -> bool:
+    """Whether a batch decode of heads `head_dim` wide (the model's config)
+    on `device` attends through batch_decode_attention: on the CPU always
+    (its plain version), on the card where the kernel takes the head size,
+    HEAD_DIM. Otherwise the caller runs the plain sdpa_slots, and the first
+    such call of each head size logs it. The JAX package routes on another
+    rule (embed_dim % 128 == 0 and R % 128 == 0)."""
+    if device.type != "cuda" or head_dim == HEAD_DIM:
+        return True
+    _log_plain_route(head_dim)
+    return False
+
+
+@functools.lru_cache(maxsize=None)
+def _log_plain_route(head_dim: int) -> None:
+    logger.warning("batch decode attention with head_dim %d runs the plain sdpa_slots on the card: the CUDA kernel "
+                   "takes head_dim %d", head_dim, HEAD_DIM)
+
+
 def batch_decode_attention_reference(q, k, v, slot_pos, qpos, k_scale=None, v_scale=None, *, read_rows=None):
     """Plain PyTorch version of batch_decode_attention (same contract)."""
+    from pocket_tts_tpu_torch.ops.attention import sdpa_slots  # it imports this module
+
     R = _read_rows(k, slot_pos, read_rows)
     valid = (slot_pos >= 0) & (slot_pos <= qpos[:, None])  # [B, R]
     out = sdpa_slots(q.transpose(1, 2), k[:, :R], v[:, :R], valid[:, None, None, :], k_scale, v_scale)
@@ -183,8 +208,8 @@ def batch_decode_attention(q, k, v, slot_pos, qpos, k_scale=None, v_scale=None, 
     if not q.is_cuda or q.dtype not in _Q_KINDS or q.stride(3) != 1:
         raise ValueError(f"q: expected a CUDA float32 or bf16 tensor with contiguous head rows, got {q.device} "
                          f"{q.dtype} strides {q.stride()}")
-    if d != 64 or k.dtype not in _KINDS:
-        raise ValueError(f"the CUDA batch attention takes head_dim 64 and float32, bf16 or int8 caches; "
+    if d != HEAD_DIM or k.dtype not in _KINDS:
+        raise ValueError(f"the CUDA batch attention takes head_dim {HEAD_DIM} and float32, bf16 or int8 caches; "
                          f"got d={d} {k.dtype}")
     _cuda.check_cuda_tensor("k", k, k.dtype, (B, C, H, d))
     _cuda.check_cuda_tensor("v", v, k.dtype, (B, C, H, d))

@@ -8,6 +8,10 @@ windowed ring ("mimi"). Parameters and streaming state are plain dicts of
 tensors with the JAX package's tree layout; the KV caches update in place.
 `forward` is the non-streaming call over a whole sequence (mimi kind: the
 encoder of voice cloning; flow_lm kind: causal, the training path).
+
+On a mesh (`mesh`) the feed-forward is Megatron's: each rank holds rows of
+`linear1` and the matching columns of `linear2`, and sums `linear2`'s
+partial outputs over tp; attention runs the rank's heads (ops/attention.py).
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ from pocket_tts_tpu_torch.ops.attention import CausalKVAttention, WindowedRingAt
 from pocket_tts_tpu_torch.ops.linear import linear
 from pocket_tts_tpu_torch.ops.norms import layer_norm
 from pocket_tts_tpu_torch.ops.rope import rope_angles
+from pocket_tts_tpu_torch.parallel.collectives import copy_to_tp
+from pocket_tts_tpu_torch.parallel.mesh import Mesh
 
 Params = dict
 State = dict
@@ -42,12 +48,13 @@ class StreamingTransformerLayer:
     max_period: float
     layer_scale: float | None = None
     attention_kind: str = "mimi"
+    mesh: Mesh | None = None
 
     @property
     def self_attn(self):
         if self.attention_kind == "mimi":
-            return WindowedRingAttention(self.d_model, self.num_heads, self.context, self.max_period)
-        return CausalKVAttention(self.d_model, self.num_heads, self.max_period)
+            return WindowedRingAttention(self.d_model, self.num_heads, self.context, self.max_period, self.mesh)
+        return CausalKVAttention(self.d_model, self.num_heads, self.max_period, self.mesh)
 
     def init_params(self, gen: torch.Generator, dtype=torch.float32) -> Params:
         params = {
@@ -78,8 +85,8 @@ class StreamingTransformerLayer:
 
     def _ff(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         h = layer_norm(x, params["norm2"]["weight"], params["norm2"]["bias"], eps=1e-5)
-        h = F.gelu(linear(h, params["linear1"]["weight"]))
-        h = linear(h, params["linear2"]["weight"])
+        h = F.gelu(linear(copy_to_tp(self.mesh, h), params["linear1"]["weight"]))
+        h = linear(h, params["linear2"]["weight"], mesh=self.mesh)
         return x + self._scaled(params, "layer_scale_2", h)
 
     def __call__(self, params, x, state, positions, rope_cache, widx=None, pos0=None, read_limit=None):
@@ -111,6 +118,7 @@ class StreamingTransformer:
     max_period: float = 10_000.0
     layer_scale: float | None = None
     kind: str = "mimi"
+    mesh: Mesh | None = None
 
     @property
     def layer(self) -> StreamingTransformerLayer:
@@ -122,6 +130,7 @@ class StreamingTransformer:
             max_period=self.max_period,
             layer_scale=self.layer_scale,
             attention_kind=self.kind,
+            mesh=self.mesh,
         )
 
     def init_params(self, gen: torch.Generator, dtype=torch.float32) -> Params:
@@ -175,6 +184,7 @@ class ProjectedTransformer:
     context: int
     max_period: float
     dim_feedforward: int
+    mesh: Mesh | None = None
 
     @property
     def transformer(self) -> StreamingTransformer:
@@ -187,6 +197,7 @@ class ProjectedTransformer:
             max_period=self.max_period,
             layer_scale=self.layer_scale,
             kind="mimi",
+            mesh=self.mesh,
         )
 
     def init_params(self, gen: torch.Generator, dtype=torch.float32) -> Params:

@@ -27,9 +27,11 @@ decode attention (slots > 1) goes through ops/batch_attention's CUDA kernel,
 and one slot decodes through the B=1 kernels.
 
 Left out on purpose, as compile or relay artifacts of the JAX engine: the
-startup precompiles, padding of groups to compiled sizes, mesh placement,
-and the host-side PRNG split (the engine owns a torch.Generator; the flow
-noise of a segment is drawn as one [S, B, ldim] tensor).
+startup precompiles, padding of groups to compiled sizes, and the host-side
+PRNG split (the engine owns a torch.Generator; the flow noise of a segment
+is drawn as one [S, B, ldim] tensor). A model on a mesh is refused for now:
+the engine under a mesh (rank 0 schedules, every rank runs each tick's
+plan) is ROADMAP queue 1's next item.
 """
 
 from __future__ import annotations
@@ -229,6 +231,9 @@ class TTSEngine:
         max_swaps_per_tick: int = 4,
         max_pending: Optional[int] = None,
     ):
+        if getattr(model, "mesh", None) is not None:
+            raise NotImplementedError("TTSEngine does not run a model on a mesh yet (ROADMAP queue 1: the engine and "
+                                      "the HTTP server under a mesh); use generate_audio_batch")
         self.model = model
         self.device = model.device
         self.num_slots = slots

@@ -19,6 +19,14 @@ FlowLMModel.decode_step takes its flow noise.
 The step runs in float32 wherever the params live, with torch.optim over
 the params tree's leaves; it reads nothing back to the host, so the host
 never waits on the card within a step.
+
+On a mesh (a FlowLMModel built with `mesh`, whose params are this rank's
+shards) every rank takes the whole batch and the same rng, as the JAX
+package's single controller does: the step draws the whole batch's noise,
+trains on its dp slice of the streams (the tp-sharded leaves take their
+gradients through parallel/collectives' copy_to_tp and reduce_from_tp),
+averages every leaf's gradient and the metrics over dp, and AdamW updates
+the rank's shards in place. The sharded step is the unsharded one.
 """
 
 from __future__ import annotations
@@ -33,14 +41,17 @@ from pocket_tts_tpu_torch.models.flow_lm import FlowLMModel
 from pocket_tts_tpu_torch.models.weights import map_tensors, named_leaves
 from pocket_tts_tpu_torch.ops.linear import linear
 from pocket_tts_tpu_torch.ops.norms import layer_norm
+from pocket_tts_tpu_torch.parallel.collectives import mean_over_dp
+from pocket_tts_tpu_torch.parallel.mesh import dp_range
 
 Optimizer = Callable[[list], torch.optim.Optimizer]  # params' leaves -> optimizer over them
 
 
 class TrainState(NamedTuple):
-    params: dict  # float32 leaves that require grad
+    params: dict  # float32 leaves that require grad (on a mesh: this rank's shards)
     optimizer: torch.optim.Optimizer  # over the leaves of params, in named_leaves order
     step: int
+    mesh: Optional[object] = None  # the model's parallel.mesh.Mesh, or None
 
 
 def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
@@ -123,14 +134,27 @@ def make_train_step(flow_lm: FlowLMModel):
     """A train step (state, rng, tokens, latents, eos_labels=None, noise=None)
     -> (state, metrics): zero the gradients, the loss, backward, one
     optimizer step over the state's params (in place), step + 1. The
-    metrics are 0-d tensors on the params' device."""
+    metrics are 0-d tensors on the params' device. On a mesh the inputs
+    and the noise are the whole batch's, and the metrics are too."""
+    mesh = flow_lm.mesh
 
     def train_step(state: TrainState, rng, tokens, latents, eos_labels=None, noise=None):
+        if mesh is not None:
+            B, Tl, ldim = latents.shape
+            if noise is None and rng is not None:
+                noise = flow_noise(rng, B, Tl, ldim)  # the whole batch's draw, as unsharded
+            lo, hi = dp_range(mesh, B)
+            tokens, latents = tokens[lo:hi], latents[lo:hi]
+            eos_labels = None if eos_labels is None else eos_labels[lo:hi]
+            noise = None if noise is None else tuple(t[lo:hi] for t in noise)
         state.optimizer.zero_grad(set_to_none=False)
         loss, metrics = flow_matching_loss(flow_lm, state.params, rng, tokens, latents, eos_labels, noise=noise)
         loss.backward()
+        if mesh is not None:  # the mean over dp slices of equal size is the whole batch's
+            mean_over_dp(mesh, [leaf.grad for _, leaf in named_leaves(state.params)])
+            mean_over_dp(mesh, list(metrics.values()))
         state.optimizer.step()
-        return TrainState(state.params, state.optimizer, state.step + 1), metrics
+        return TrainState(state.params, state.optimizer, state.step + 1, state.mesh), metrics
 
     return train_step
 
@@ -144,4 +168,4 @@ def init_train_state(flow_lm: FlowLMModel, params: dict, optimizer: Optimizer) -
     leaves = [leaf for _, leaf in named_leaves(params)]
     for leaf in leaves:
         leaf.grad = torch.zeros_like(leaf)
-    return TrainState(params, optimizer(leaves), 0)
+    return TrainState(params, optimizer(leaves), 0, getattr(flow_lm, "mesh", None))

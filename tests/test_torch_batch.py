@@ -236,6 +236,27 @@ def test_batch_attention_cpu_tensors_take_the_plain_version(q_dtype):
     assert batch_decode_attention.launches == launches
 
 
+def test_batch_route_follows_the_config_head_size(caplog):
+    """kernel_takes: on the card the kernel takes heads of HEAD_DIM, the
+    b6369a24 FlowLM's; another head size (the tiny and dry-run configs'
+    16) leaves it for the plain sdpa_slots, logged once per head size; on
+    the CPU every batch decode goes through the wrapper (its plain version)."""
+    from pocket_tts_tpu_torch.config.schema import builtin_config_path, load_config
+
+    t = load_config(builtin_config_path("b6369a24")).flow_lm.transformer
+    assert t.d_model // t.num_heads == batch_attention.HEAD_DIM
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    assert batch_attention.kernel_takes(batch_attention.HEAD_DIM, cuda)
+    batch_attention._log_plain_route.cache_clear()
+    with caplog.at_level("WARNING", logger=batch_attention.__name__):
+        assert not batch_attention.kernel_takes(16, cuda)
+        assert not batch_attention.kernel_takes(16, cuda)
+        assert not batch_attention.kernel_takes(128, cuda)
+    logged = [r.getMessage() for r in caplog.records]
+    assert len(logged) == 2 and "head_dim 16" in logged[0] and "head_dim 128" in logged[1]
+    assert all(batch_attention.kernel_takes(d, cpu) for d in (16, 64, 128))
+
+
 # ---------------------------------------------------------------- (c) attention module
 
 

@@ -34,6 +34,8 @@ MODULES = [
     "pocket_tts_tpu_torch.models.seanet",
     "pocket_tts_tpu_torch.models.mimi",
     "pocket_tts_tpu_torch.training",
+    "pocket_tts_tpu_torch.parallel",
+    "pocket_tts_tpu_torch.parallel.dryrun",
 ]
 
 
