@@ -72,7 +72,9 @@ Phases (any failure exits non-zero and prints no result line):
      kernels timed at (65536, 1024) by torch.profiler kernel time beside
      their bounds, their plain versions and one PyTorch call each (graph
      walls; the sum
-     over inputs and outputs rotated past the L2, so both reach HBM);
+     over inputs and outputs rotated past the L2, so both reach HBM), and a
+     one-element add_ in the same profiler window and calls as row_write:
+     the fixed cost of any kernel, with row_write's time as a multiple of it;
   9. the serving engine at b6369a24 width, int8 weights and int8 KV:
      TTSEngine(slots=64, segment_frames=8, capacity=384) serves 96 requests
      (48 at once, then 2 every 40 ms) in its serving thread, once on a
@@ -153,7 +155,19 @@ Phases (any failure exits non-zero and prints no result line):
      version at a rank's shapes (B=4, H=8) at the capacity and every read
      limit the ranks decoded with (TOL_BATCH); a witness prints where the
      sharded audio first departs from the unsharded, beside the gap that
-     the plain attention alone opens in the unsharded model.
+     the plain attention alone opens in the unsharded model. Then the
+     dry run's engine stage: TTSEngine on the bf16-KV model (8 slots, 4 a
+     rank, 4-frame segments, capacity 512) driven by rank 0's step(): 8
+     submits admitted by one step, a churn arrival that parks a stream, its
+     cancel and the resume, at temperature 0.7; then the same session at
+     temperature 0 to its end, held against the same steps on the model
+     unsharded in this process (each request's audio within
+     TOL_MESH_AUDIO["bf16"] of its peak; the gap witness). It prints each
+     session's ticks, walls, tick-wall p50, frames, parks and resumes, and
+     every rank's batch_decode_attention launches, which must be 6 a frame
+     it decoded, with no B=1 launch; and holds the batch kernel against its
+     plain version at a rank's engine shapes (B=4, H=8, C=512, the whole
+     read, bf16 and int8).
 
 The total wall time is printed before the last two lines. The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.
@@ -1057,6 +1071,13 @@ def probes_phase(torch, dev, card) -> dict:
           graph_ms(torch, lambda: held.append((next(xs).view(C, H, W).float() * weights).sum(1)), calls=20,
                    replays=3))
     held.clear()
+    # The fixed cost of running any kernel: a one-element add_ in the same
+    # profiler window and number of calls as row_write.
+    one = torch.zeros(1, device=dev)
+    floor_ms, floor_records = kernel_profile(torch, lambda: one.add_(1.0), 48, "elementwise_kernel")
+    print(f"one-element add_ (the fixed cost of any kernel): {floor_ms * 1e3:.2f} us/call of device time "
+          f"(torch.profiler, mean of {floor_records} records of 48 calls); row_write takes {p1[0] / floor_ms:.2f} x "
+          f"that [{card}]", flush=True)
     x = next(xs)
     b1 = bound(2 * E * 2 + 4, 0)  # one row read and written, the index read
     b2 = bound(x.numel() * 2, 2 * x.numel())  # x read (the output stays in the L2); a multiply-add per element
@@ -1609,7 +1630,13 @@ def mesh_phase(torch, card) -> tuple[int, float]:
     from pocket_tts_tpu_torch.models.tts_model import TTSModel
     from pocket_tts_tpu_torch.models.weights import named_leaves
     from pocket_tts_tpu_torch.ops import batch_attention
-    from pocket_tts_tpu_torch.parallel.dryrun import DRYRUN_TEXTS, TRAIN_BATCH, dryrun_multichip, train_batch
+    from pocket_tts_tpu_torch.parallel.dryrun import (
+        DRYRUN_TEXTS,
+        ENGINE_KW,
+        TRAIN_BATCH,
+        dryrun_multichip,
+        train_batch,
+    )
     from pocket_tts_tpu_torch.training import adamw, init_train_state, make_train_step
     from pocket_tts_tpu_torch.training.flow_matching import flow_noise
 
@@ -1668,8 +1695,19 @@ def mesh_phase(torch, card) -> tuple[int, float]:
         print(f"mesh ({kv} KV) witness: sharded against unsharded {divergence(frame_errors(got, ref))}; unsharded "
               f"with plain attention against unsharded with the kernel {divergence(frame_errors(plain, ref))}",
               flush=True)
+        if kv == "bf16":  # the engine stage ran on this model's sharded twin
+            total += mesh_engine_check(torch, out, model, label, card)
         del model, voice
         torch.cuda.empty_cache()
+    # The kernel at a rank's engine shapes: its slots and heads, the whole capacity read at every step.
+    B_rank, C = ENGINE_KW["slots"] // out["dp"], ENGINE_KW["capacity"]
+    engine_err = compare_batch_attention(
+        torch, dev, batch_attention.batch_decode_attention, batch_attention.batch_decode_attention_reference,
+        [(B_rank, C, (C,))], H=heads)
+    kernel_err = max(kernel_err, engine_err)
+    print(f"mesh engine: batch_decode_attention at a rank's engine shapes (B={B_rank}, H={heads}, C={C}, the whole "
+          f"read; bf16 and int8 KV) against its plain version: max |err| {engine_err:.3g} (tol {TOL_BATCH})",
+          flush=True)
 
     model = TTSModel.load_model(device="cuda")  # float32, seed 0: the ranks' weights before sharding
     flow_lm = model.flow_lm
@@ -1701,6 +1739,53 @@ def mesh_phase(torch, card) -> tuple[int, float]:
     del state
     torch.cuda.empty_cache()
     return total, kernel_err
+
+
+def mesh_engine_check(torch, out, model, label, card) -> int:
+    """Phase 15's engine stage: its sessions' ticks, walls, frames, parks
+    and resumes on rank 0; every rank's batch_decode_attention launches
+    (6 a decoded frame, no B=1 launch); its temperature-0 session against
+    the same session on `model` unsharded (int8 weights, bf16 KV,
+    temperature 0, EOS disabled), each request's audio within
+    TOL_MESH_AUDIO["bf16"] of its peak, and where the gap opens. Returns the
+    ranks' batch kernel launches."""
+    import numpy as np
+
+    from pocket_tts_tpu_torch.parallel.dryrun import ENGINE_KW, engine_session, engine_voice
+    from pocket_tts_tpu_torch.serving.engine import TTSEngine
+
+    eng = out["engine"]
+    for name, session in (("tick (temperature 0.7)", eng["tick"]), ("exact (temperature 0)", eng["exact"])):
+        walls = session["walls"]
+        print(f"mesh engine, {name} session: {len(walls)} step() ticks in {sum(walls):.2f} s, tick wall p50 "
+              f"{statistics.median(walls) * 1e3:.1f} ms, {session['frames']} frames dispatched, the first step "
+              f"delivered {session['first_frames']} frames, {session['parks']} park(s), {session['resumes']} "
+              f"resume(s) [{label}; {card}]", flush=True)
+    print(f"mesh engine stage: {eng['wall']:.2f} s on rank 0 (both sessions, engine builds and voices included) "
+          f"[{label}; {card}]", flush=True)
+    layers, per_rank = model.config.flow_lm.transformer.num_layers, out["engine_ranks"]
+    print(f"mesh engine: batch_decode_attention launches per rank "
+          f"{[r['launches']['batch_decode_attention'] for r in per_rank]} for {[r['frames'] for r in per_rank]} "
+          f"frames x {layers} layers, B=1 kernel launches per rank "
+          f"{[r['launches']['fused_backbone_step'] + r['launches']['fused_segment_decode'] for r in per_rank]}",
+          flush=True)
+    if any(r["launches"]["batch_decode_attention"] != layers * r["frames"] or r["frames"] == 0
+           or r["launches"]["fused_backbone_step"] or r["launches"]["fused_segment_decode"] for r in per_rank):
+        fail(f"mesh engine: every rank must attend through batch_decode_attention at every decode step and launch "
+             f"no B=1 kernel: {per_rank}")
+    ref = engine_session(TTSEngine(model, **ENGINE_KW), engine_voice(model), to_end=True)
+    got = eng["exact"]["audio"]
+    if [g.shape for g in got] != [r.shape for r in ref["audio"]]:
+        fail(f"mesh engine: request lengths {[g.shape for g in got]} against {[r.shape for r in ref['audio']]}")
+    errs = [float(np.abs(g - r).max()) / max(float(np.abs(r).max()), 1e-30) for g, r in zip(got, ref["audio"])]
+    print(f"mesh engine, exact session against the same steps unsharded ({len(ref['walls'])} ticks in "
+          f"{sum(ref['walls']):.2f} s, tick wall p50 {statistics.median(ref['walls']) * 1e3:.1f} ms [{card}]): "
+          f"{len(got)} requests, max |err| {max(float(np.abs(g - r).max()) for g, r in zip(got, ref['audio'])):.3g}, "
+          f"{max(errs):.3g} of the request's peak (tol {TOL_MESH_AUDIO['bf16']}); witness: "
+          f"{divergence(frame_errors(got, ref['audio']))}", flush=True)
+    if max(errs) > TOL_MESH_AUDIO["bf16"]:
+        fail(f"mesh engine: sharded audio differs by {max(errs):.4g} of the peak")
+    return sum(r["launches"]["batch_decode_attention"] for r in per_rank)
 
 
 def _expected_frames(model, text: str, text_pad: int) -> int:
@@ -1820,6 +1905,7 @@ def engine_phase(torch, model, model8, card, batch_kernel, step_kernel, segment_
     torch.cuda.set_sync_debug_mode("error")
     try:
         queued = [engine._dispatch_segment(), engine._dispatch_segment()]
+        engine._flush()  # runs the two planned segments
     except RuntimeError as exc:
         fail(f"engine: dispatching a segment synchronised with the card: {exc}")
     finally:

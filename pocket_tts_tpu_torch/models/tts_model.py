@@ -34,8 +34,10 @@ package.
 from __future__ import annotations
 
 import copy
+import itertools
 import logging
 import time
+import weakref
 from pathlib import Path
 from typing import Generator, Optional, Sequence, Union
 
@@ -146,12 +148,18 @@ class ModelState:
     The kernels append into the caches in place, so generation with
     copy_state=True works on a clone and leaves this state bit-identical.
     On a mesh the tree holds the whole batch on every rank, with this
-    rank's heads."""
+    rank's heads.
+
+    `key` names the state to the serving engine: a voice made by the model
+    gets the model's next sequence number. On a mesh voices are made by
+    collective calls in the same order on every rank, so the same voice has
+    the same key on every rank, and the engine's tick plan names it by key."""
 
     def __init__(self, tree: dict, pos: list[int], written: int | None = None):
         self.tree = tree
         self.pos = list(pos)
         self.written = int(written) if written is not None else max(self.pos, default=0)
+        self.key: Optional[int] = None
 
     @property
     def batch_size(self) -> int:
@@ -206,6 +214,10 @@ class TTSModel:
         # cloning (load_model's fallback): cloning from a file is refused.
         self.has_voice_cloning = True
         self._voice_state_cache: dict = {}
+        # Voice states by key (ModelState.key), held weakly: the same
+        # sequence on every rank of a mesh.
+        self._voices: "weakref.WeakValueDictionary[int, ModelState]" = weakref.WeakValueDictionary()
+        self._voice_keys = itertools.count()
         self._gen = torch.Generator().manual_seed(seed)
         self._warm_mimi: dict = {}
         # Schedule of the last generation: batch size, decoded frames, cache
@@ -429,7 +441,18 @@ class TTSModel:
         state = self.flow_lm.init_state(B, _bucket(T), dtype=self.flow_state_dtype, device=self.device)
         with torch.no_grad():
             state = self.flow_lm.prefill(self.params["flow_lm"], state, prompt.float().to(self.device), [T] * B)
-        return ModelState(state, [T] * B, written=T)
+        voice = ModelState(state, [T] * B, written=T)
+        voice.key = next(self._voice_keys)
+        self._voices[voice.key] = voice
+        return voice
+
+    def _voice_by_key(self, key: int) -> ModelState:
+        state = self._voices.get(key)
+        if state is None:
+            rank = self.mesh.rank if self.mesh is not None else 0
+            raise KeyError(f"voice state {key} is gone on rank {rank}: on a mesh every rank keeps each voice state "
+                           "that rank 0 submits to the engine")
+        return state
 
     # ------------------------------------------------------------------ generation
 

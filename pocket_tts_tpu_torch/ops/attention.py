@@ -9,10 +9,11 @@
   that must survive a decode is cloned first (models/tts_model.ModelState).
   An int8 cache (batch serving) stores symmetric int8 rows with one float32
   scale per row (`k_scale` / `v_scale`, [B, C]). Batch decode steps (T == 1,
-  B > 1) attend through ops/batch_attention.batch_decode_attention over the
-  full cache, reading its first `read_limit` rows (on the card where the
-  kernel takes the head size: batch_attention.kernel_takes); every other
-  call (prefill, T > 1, B == 1) runs the dense `sdpa_slots`. Its `forward`
+  B > 1, or any B on a mesh, where a rank may hold one stream of a batch)
+  attend through ops/batch_attention.batch_decode_attention over the full
+  cache, reading its first `read_limit` rows (on the card where the kernel
+  takes the head size: batch_attention.kernel_takes); every other call
+  (prefill, T > 1, B == 1 off a mesh) runs the dense `sdpa_slots`. Its `forward`
   is the cache-free causal form over a whole sequence (training).
 - WindowedRingAttention (Mimi codec): a shift-append ring kept ordered
   oldest -> newest; slot positions are arithmetic, and long chunks attend in
@@ -194,7 +195,8 @@ class CausalKVAttention:
         sp = state["slot_pos"][:, :R]
         ks = state["k_scale"][:, :R] if int8_kv else None
         vs = state["v_scale"][:, :R] if int8_kv else None
-        if T == 1 and B > 1 and batch_attention.kernel_takes(self.head_dim, state["k"].device):
+        batch_step = T == 1 and (B > 1 or self.mesh is not None)
+        if batch_step and batch_attention.kernel_takes(self.head_dim, state["k"].device):
             # The full cache buffers go in; the kernel reads rows [:R] only.
             out = batch_attention.batch_decode_attention(
                 q.transpose(1, 2), state["k"], state["v"], sp, positions[:, 0], ks, vs,

@@ -11,10 +11,11 @@ block's heads, a feed-forward's hidden units):
     backward.
 
 Then the int8 KV row maximum over tp (a row's scale spans every head), the
-gradient mean over dp, and the all_gathers of whole leaves over tp and of
-per-stream results over dp. Every function takes the rank's Mesh, or None
-for no mesh, and calls no collective where its axis has one rank. Each call
-adds one to `mesh.counts["<op>:<axis>"]`.
+gradient mean over dp, the all_gathers of whole leaves over tp and of
+per-stream results and state rows over dp, and the serving engine's
+broadcast of each tick's plan from rank 0 over the world. Every function
+takes the rank's Mesh, or None for no mesh, and calls no collective where
+its axis has one rank. Each call adds one to `mesh.counts["<op>:<axis>"]`.
 """
 
 from __future__ import annotations
@@ -103,6 +104,22 @@ def barrier(mesh: Mesh) -> None:
     """Wait until every rank of the mesh gets here."""
     mesh.counts["barrier:world"] += 1
     dist.barrier()
+
+
+def all_gather_dp_tensor(mesh: Mesh, x: torch.Tensor) -> list[torch.Tensor]:
+    """Every dp rank's x (one shape and dtype on every rank), in dp order."""
+    mesh.counts["all_gather:dp"] += 1
+    parts = [torch.empty_like(x) for _ in range(mesh.dp)]
+    dist.all_gather(parts, x.contiguous(), group=mesh.dp_group)
+    return parts
+
+
+def broadcast_from_rank0(mesh: Mesh, obj=None):
+    """Rank 0's obj (a picklable host value) on every rank of the world."""
+    mesh.counts["broadcast:world"] += 1
+    box = [obj]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
 
 
 def all_gather_dp(mesh: Optional[Mesh], obj) -> list:

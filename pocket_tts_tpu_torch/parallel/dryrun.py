@@ -11,15 +11,22 @@ mesh and runs, with real dp x tp shardings:
   3. `config` (the published b6369a24 by default) through the public mesh
      API: `TTSModel.load_model(mesh=..., param_dtype="int8")` and a sharded
      `generate_audio_batch` of 8 streams, with bf16 and with int8 KV
-     caches, then one float32 train step of its FlowLM at B=8 x (32 text
-     tokens + 125 latent frames) on a `load_model(mesh=...)` model.
+     caches;
+  4. the serving engine on that model (bf16 KV, EOS disabled; the JAX dry
+     run's engine tick, pocket_tts_tpu/parallel/dryrun.py:181-254): 8 slots
+     over dp, each rank's KV and parking store on its heads, 8 submits
+     admitted and decoded by one step(), a churn arrival that parks one
+     stream, its cancel, and the parked stream's resume within 8 steps; then
+     the same session at temperature 0 run to its end (`engine_session`,
+     which a caller repeats on an unsharded engine);
+  5. one float32 train step of `config`'s FlowLM at B=8 x (32 text tokens +
+     125 latent frames) on a `load_model(mesh=...)` model.
 
 It returns what a caller needs to hold the sharded runs against unsharded
-ones (rank 0's audio, loss and gathered gradients, and each batch run's
-capacity and read limits; every rank's kernel launches and collective
-counts) and prints one summary line. The JAX dry run's third stage, an
-engine tick with park and resume under the mesh, comes with the engine
-under a mesh (ROADMAP queue 1).
+ones (rank 0's audio, loss and gathered gradients, each batch run's
+capacity and read limits, the engine sessions' audio and counters; every
+rank's kernel launches, decoded engine frames and collective counts) and
+prints one summary line.
 """
 
 from __future__ import annotations
@@ -75,7 +82,15 @@ DRYRUN_TEXTS = [
     "The clocks were striking thirteen.",
     "She read the letter twice.",
 ]
-TRAIN_BATCH = (8, 32, 125)  # stage 3's train step: streams, text tokens, latent frames
+TRAIN_BATCH = (8, 32, 125)  # stage 5's train step: streams, text tokens, latent frames
+# Stage 4, the JAX dry run's engine tick: 8 slots of 4-frame segments, every
+# running stream preemptable and every parked one resumed at once.
+ENGINE_KW = dict(slots=8, segment_frames=4, capacity=512, text_pad=16, warmup_frames=0, preempt_min_lead_s=-1e9,
+                 resume_urgent_lead_s=-1e9, max_parked=2)
+ENGINE_TEXTS = [f"Dry run stream number {i}." for i in range(8)]
+CHURN_TEXT = "Churn arrival while saturated."
+RESUME_STEPS = 8  # the parked stream resumes within this many steps
+MAX_SESSION_STEPS = 200
 KERNELS = ("batch_decode_attention", "fused_backbone_step", "fused_segment_decode")
 
 
@@ -113,9 +128,105 @@ def _sync(device) -> None:
         torch.cuda.synchronize()
 
 
+def engine_voice(model):
+    """The engine stage's voice: a seeded 25-row prompt (a collective prefill
+    on a mesh)."""
+    prompt = torch.randn(1, 25, model.flow_lm.dim, generator=torch.Generator().manual_seed(11)) * 0.02
+    return model._state_from_prompt(prompt)
+
+
+def _queued(handle) -> list:
+    """The frames waiting in a handle's queue (taken out)."""
+    frames = []
+    while not handle._queue.empty():
+        frame = handle._queue.get_nowait()
+        if frame is not None:
+            frames.append(frame)
+    return frames
+
+
+def engine_session(engine, voice, to_end: bool) -> dict:
+    """The engine stage's steps on an engine (rank 0's of a mesh engine, or
+    an unsharded one): the 8 texts submitted, one step() that admits all 8
+    and delivers first_segment_frames frames of each, a churn arrival whose
+    step parks one stream, the churn cancelled, steps until the parked
+    stream resumes (at most RESUME_STEPS), and with to_end steps until every
+    request is done -> its counters, step walls and (to_end) each request's
+    audio. Raises where a step does not do its part."""
+    walls = []
+
+    def step() -> int:
+        t0 = time.monotonic()
+        active = engine.step()
+        walls.append(time.monotonic() - t0)
+        return active
+
+    handles = [engine.submit(t, voice, frames_after_eos=1) for t in ENGINE_TEXTS]
+    if step() != len(handles):
+        raise RuntimeError("the first engine step must admit every submitted stream")
+    first = sum(h._frames_delivered for h in handles)
+    if first != engine.first_segment_frames * len(handles):
+        raise RuntimeError(f"the first engine step delivered {first} frames")
+    churn = engine.submit(CHURN_TEXT, voice, frames_after_eos=1)
+    step()
+    if engine.preemptions < 1 or churn._frames_delivered < 1:
+        raise RuntimeError("the churn arrival must park a running stream and decode")
+    churn.cancel()
+    while engine.resumes < 1 and len(walls) < 2 + RESUME_STEPS:
+        step()
+    if engine.resumes < 1:
+        raise RuntimeError(f"the parked stream did not resume within {RESUME_STEPS} steps")
+    handles.append(churn)
+    out = {"first_frames": first, "parks": engine.preemptions, "resumes": engine.resumes}
+    if to_end:
+        while not all(h.done for h in handles) and len(walls) < MAX_SESSION_STEPS:
+            step()
+        out["audio"] = [h.audio() for h in handles]
+    else:
+        out["audio"] = None
+        frames = [f for h in handles for f in _queued(h)]
+        if not all(np.isfinite(f).all() for f in frames):
+            raise RuntimeError("the engine delivered non-finite frames")
+    out.update(walls=walls, frames=engine.frames_dispatched)
+    return out
+
+
+def _engine_stage(model, mesh) -> dict:
+    """Stage 4 on every rank -> rank 0's sessions (the default temperature,
+    then temperature 0 to the end) and every rank's decoded frames and
+    kernel launches."""
+    from pocket_tts_tpu_torch.default_parameters import DEFAULT_TEMPERATURE
+    from pocket_tts_tpu_torch.serving.engine import TTSEngine
+
+    out, frames, t0 = {}, 0, time.monotonic()
+    before = _launches()
+    for name, temp in (("tick", DEFAULT_TEMPERATURE), ("exact", 0.0)):
+        model.temp = temp
+        voice = engine_voice(model)
+        engine = TTSEngine(model, **ENGINE_KW)
+        k = engine.flow_state["transformer"]["layers"][0]["k"]
+        store_k = engine._store_flow["transformer"]["layers"][0]["k"]
+        heads, d = model.config.flow_lm.transformer.num_heads // mesh.tp, k.shape[-1]
+        want = [(ENGINE_KW["slots"] // mesh.dp, ENGINE_KW["capacity"], heads, d),
+                (ENGINE_KW["max_parked"], ENGINE_KW["capacity"], heads, d)]
+        if [tuple(k.shape), tuple(store_k.shape)] != want:
+            raise RuntimeError(f"engine KV {tuple(k.shape)} and store {tuple(store_k.shape)} on rank {mesh.rank}: "
+                               f"expected this rank's slots and heads, {want}")
+        if mesh.rank == 0:
+            out[name] = engine_session(engine, voice, to_end=name == "exact")
+            engine.stop()  # ends the followers' run()
+        else:
+            engine.run()
+        frames += engine.frames_dispatched
+    _sync(mesh.device)
+    out.update(frames=frames, launches={k: v - before[k] for k, v in _launches().items()},
+               wall=time.monotonic() - t0)
+    return out
+
+
 def dryrun_rank(dp: int, tp: int, device_type: str, config: str) -> dict:
     """One rank of the dry run, on a world of dp * tp ranks that is up: the
-    three stages above -> this rank's results (summarize reads them)."""
+    five stages above -> this rank's results (summarize reads them)."""
     from pocket_tts_tpu_torch.models.tts_model import TTSModel
     from pocket_tts_tpu_torch.training import adamw, init_train_state, make_train_step
     from pocket_tts_tpu_torch.training.flow_matching import flow_noise
@@ -177,8 +288,16 @@ def dryrun_rank(dp: int, tp: int, device_type: str, config: str) -> dict:
                 a.ndim != 1 or a.shape[0] == 0 or a.shape[0] % 1920 or not np.isfinite(a).all() for a in audios):
             raise RuntimeError(f"sharded generate_audio_batch ({kv} KV) must return finite whole frames per stream")
         out["batch"][kv] = audios if mesh.rank == 0 else None
+        if kv == "bf16":
+            engine_model = model
         del model
     out["frames"] = out["generation"]["int8"]["frames"]
+
+    # ------------------------------------------------ 4. the serving engine on the mesh
+    out["engine"] = _engine_stage(engine_model, mesh)
+    del engine_model
+
+    # ------------------------------------------------ 5. train step of `config`
 
     t0 = time.monotonic()
     model = TTSModel.load_model(config, device=device_type, mesh=mesh, allow_random_init=True)
@@ -205,7 +324,7 @@ def dryrun_rank(dp: int, tp: int, device_type: str, config: str) -> dict:
 
 def dryrun_multichip(n_devices: int, device: str = "cuda", config: str = DEFAULT_VARIANT,
                      timeout: float = 900.0) -> dict:
-    """Run the three stages on n_devices ranks of `device` ("cuda": the
+    """Run the five stages on n_devices ranks of `device` ("cuda": the
     cards, or one card shared; "cpu": gloo on the host) -> summarize's
     result. Raises if any rank fails or hangs."""
     dp, tp = _pick_mesh_shape(n_devices)
@@ -215,14 +334,17 @@ def dryrun_multichip(n_devices: int, device: str = "cuda", config: str = DEFAULT
 
 
 def summarize(ranks: list, dp: int, tp: int, device: str, config: str, wall_s: float) -> dict:
-    """Every rank's dryrun_rank result -> rank 0's, with "launches" and
-    "counts" of every rank, "dp", "tp" and "wall_s"; prints the summary
-    line."""
+    """Every rank's dryrun_rank result -> rank 0's, with "launches",
+    "counts" and "engine_ranks" (each rank's engine frames and launches) of
+    every rank, "dp", "tp" and "wall_s"; prints the summary line."""
     result = dict(ranks[0], dp=dp, tp=tp, wall_s=wall_s,
-                  launches=[r["launches"] for r in ranks], counts=[r["counts"] for r in ranks])
-    audio = result["segment_audio"]
+                  launches=[r["launches"] for r in ranks], counts=[r["counts"] for r in ranks],
+                  engine_ranks=[{"frames": r["engine"]["frames"], "launches": r["engine"]["launches"]} for r in ranks])
+    audio, tick = result["segment_audio"], result["engine"]["tick"]
     print(f"dryrun_multichip OK: {len(ranks)} ranks (dp={dp}, tp={tp}) over {result['backend']} on {device}, "
           f"generate segment audio {audio.shape}, train loss {result['toy_loss']:.4f}, {config} "
           f"generate_audio_batch of {len(DRYRUN_TEXTS)} streams decoded {result['frames']} frames with bf16 and "
-          f"int8 KV, its train step at B={TRAIN_BATCH[0]} loss {result['train']['loss']:.4f}", flush=True)
+          f"int8 KV, its engine tick delivered {tick['first_frames']} frames; churn preemption under the mesh OK "
+          f"({tick['parks']} park(s), {tick['resumes']} resume(s) through the parking store), its train step at "
+          f"B={TRAIN_BATCH[0]} loss {result['train']['loss']:.4f}", flush=True)
     return result

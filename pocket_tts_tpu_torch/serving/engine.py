@@ -1,5 +1,5 @@
-"""Continuous-batching TTS engine: many concurrent streams on one card
-(port of pocket_tts_tpu/serving/engine.py).
+"""Continuous-batching TTS engine: many concurrent streams on one card or on
+a (dp, tp) mesh (port of pocket_tts_tpu/serving/engine.py).
 
 The engine owns B decode *slots* whose state lives on the model's device:
 
@@ -17,29 +17,54 @@ pipelining, and are reusable at once. A stream may be *parked* (preempted)
 into a device-resident store when a new arrival finds every slot busy, and
 resumed or swapped back later.
 
+The host side (the controller: submit, the queues, the slots' bookkeeping
+and every decision that reads the clock) records each tick's device work as
+a *plan*: growth, parks, swaps, admissions, compactions, the prefill,
+resumes, cancellations and the segment, in order. `_flush` runs the plan on
+the engine's state (the executor) before the tick's deliveries.
+
+On a mesh (a model from `load_model(mesh=...)`; parallel/) the JAX engine's
+single controller becomes rank 0. Every rank builds the engine (a
+collective call) and holds its dp slice of the slots (parallel/mesh.dp_range;
+all of them where dp does not divide `slots`) and its tp heads, and the whole
+parking store on its heads (lanes replicated over dp, as the JAX engine
+places it): a park or swap sends the parked rows from the rank that holds
+the slot to its dp group, so a stream parked on one dp rank resumes on any.
+Rank 0 alone takes submit() and cancellations and plans; its step() and
+run() broadcast each tick's plan to the world (`broadcast:world` in
+mesh.counts), and on every other rank step() and run() apply the plans they
+receive until rank 0's run() or stop() ends them. Every rank then runs the
+prefill, the Mimi warmup and each decode step in the same order, so their
+tp collectives line up, draws each segment's noise at the whole [S, B,
+ldim] shape from the engine's generator and keeps its rows, and gathers
+each delivered segment's outputs over dp. A plan names a voice by its
+ModelState.key, which every rank resolves; the HTTP server's voices are made
+on every rank as plan items (voice_state).
+
 The caches update in place (the JAX engine updates functionally and donates
 its buffers): admission and resume copy rows out of the voice tree or the
 store, never alias them. The write index `widx` and the stream positions are
 host integers of the state tree; `_written` and `_pos` mirror them as the
 JAX engine's host mirrors do. Every decode step attends over the whole cache
 capacity, as the JAX engine's segment program does. On a card every batch
-decode attention (slots > 1) goes through ops/batch_attention's CUDA kernel,
-and one slot decodes through the B=1 kernels.
+decode attention (slots > 1, or any slot on a mesh) goes through
+ops/batch_attention's CUDA kernel, and one slot off a mesh decodes through
+the B=1 kernels.
 
 Left out on purpose, as compile or relay artifacts of the JAX engine: the
 startup precompiles, padding of groups to compiled sizes, and the host-side
 PRNG split (the engine owns a torch.Generator; the flow noise of a segment
-is drawn as one [S, B, ldim] tensor). A model on a mesh is refused for now:
-the engine under a mesh (rank 0 schedules, every rank runs each tick's
-plan) is ROADMAP queue 1's next item.
+is drawn as one [S, B, ldim] tensor).
 """
 
 from __future__ import annotations
 
+import collections
 import logging
 import queue
 import threading
 import time
+import weakref
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -52,6 +77,8 @@ from pocket_tts_tpu_torch.models.text import estimate_max_gen_len, prepare_text_
 from pocket_tts_tpu_torch.models.tts_model import ModelState, TTSModel, _bucket
 from pocket_tts_tpu_torch.ops.batch_attention import MAX_READ_ROWS
 from pocket_tts_tpu_torch.ops.sampling import sample_noise
+from pocket_tts_tpu_torch.parallel.collectives import all_gather_dp, all_gather_dp_tensor, broadcast_from_rank0
+from pocket_tts_tpu_torch.parallel.mesh import dp_range
 from pocket_tts_tpu_torch.utils.transfer import host_to_device
 
 logger = logging.getLogger(__name__)
@@ -148,6 +175,17 @@ class _Parked:
     frames_left: int  # the slot's frames_left when parked
 
 
+@dataclass
+class _NamedVoice:
+    """A predefined voice asked for by name (voice_state): made once, on a
+    mesh on every rank as a plan item; `ready` is set when it is made (or
+    when making it failed: `error`)."""
+
+    state: Optional[ModelState] = None
+    error: Optional[BaseException] = None
+    ready: threading.Event = field(default_factory=threading.Event)
+
+
 # ---------------------------------------------------------------- row movers
 #
 # A state tree is nested dicts and lists whose per-row leaves are tensors
@@ -203,6 +241,23 @@ def _tensors(tree):
         yield leaf
 
 
+def _share_rows(mesh, trees: list, owners: list[int]) -> None:
+    """Make row k of every tensor of `trees` (K rows each, on every rank of
+    a dp group) the row of dp rank owners[k], in place: the rows' bytes in
+    one [K, bytes] tensor, one all_gather over dp."""
+    leaves = [t for tree in trees for t in _tensors(tree)]
+    K = len(owners)
+    flat = torch.cat([t.reshape(K, -1).view(torch.uint8) for t in leaves], dim=1)
+    parts = all_gather_dp_tensor(mesh, flat)
+    whole = torch.stack([parts[d][k] for k, d in enumerate(owners)])
+    offset = 0
+    for t in leaves:
+        n = t.numel() // K * t.element_size()
+        part = torch.empty((K, n), dtype=torch.uint8, device=t.device).copy_(whole[:, offset : offset + n])
+        t.copy_(part.reshape(-1).view(t.dtype).reshape(t.shape))
+        offset += n
+
+
 def _ceil8(n: int) -> int:
     return -(-n // 8) * 8
 
@@ -231,9 +286,6 @@ class TTSEngine:
         max_swaps_per_tick: int = 4,
         max_pending: Optional[int] = None,
     ):
-        if getattr(model, "mesh", None) is not None:
-            raise NotImplementedError("TTSEngine does not run a model on a mesh yet (ROADMAP queue 1: the engine and "
-                                      "the HTTP server under a mesh); use generate_audio_batch")
         self.model = model
         self.device = model.device
         self.num_slots = slots
@@ -275,53 +327,76 @@ class TTSEngine:
         self.rejected = 0
         self._completions: list = []  # recent completion times: the drain rate
         self.frame_seconds = 1.0 / float(model.config.mimi.frame_rate)
+        # Short segment for the tick right after an admission: new streams
+        # reach their first frame after first_segment_frames of decode.
+        self.first_segment_frames = max(1, min(first_segment_frames, segment_frames))
 
+        # The mesh: rank 0 plans (the leader); this rank holds slots [lo, hi).
+        self.mesh = model.mesh
+        self._leader = self.mesh is None or self.mesh.rank == 0
+        self._lo, self._hi = dp_range(self.mesh, slots)
+        self._sharded = (self._lo, self._hi) != (0, slots)
+        if self.mesh is not None:
+            settings = (slots, segment_frames, capacity, text_pad, warmup_frames, emit_pcm16, self.max_capacity,
+                        self.first_segment_frames, self.prefill_buckets, preempt, self.max_parked)
+            if broadcast_from_rank0(self.mesh, settings) != settings:
+                raise ValueError(f"rank {self.mesh.rank} built TTSEngine with other settings than rank 0: every rank "
+                                 "of a mesh builds the same engine")
+
+        # ---- the executor's state: this rank's rows, on the device
         flow_lm, mimi, dev = model.flow_lm, model.mimi, self.device
-        B = slots
+        B = self._hi - self._lo
         self.flow_state = flow_lm.init_state(B, capacity, dtype=model.flow_state_dtype, device=dev)
         self.mimi_state = mimi.init_decode_state(B, model.state_dtype, segment_frames, dev)
         # max_gen = 0 marks a slot inactive (its emit is always off).
         self.carry = initial_carry(B, flow_lm.ldim, [0] * B, [0] * B, dev)
-        self._written = 0  # host mirror of the batch-common write index
-        self._pos = [0] * B  # host mirror of the active slots' stream positions
+        if self.preempt:
+            # Device-resident parking store: max_parked lanes of slot-shaped
+            # state (every lane on every rank, this rank's heads); all parks
+            # of a tick write it together, all resumes read it.
+            P = self.max_parked
+            self._store_flow = flow_lm.init_state(P, capacity, dtype=model.flow_state_dtype, device=dev)
+            self._store_mimi = mimi.init_decode_state(P, model.state_dtype, segment_frames, dev)
+            self._store_carry = initial_carry(P, flow_lm.ldim, [0] * P, [0] * P, dev)
         self._warm_mimi_row = None  # warmed-up one-row Mimi state, copied into slots
+        self._voice_cache: dict = {}  # voice key -> (voice, capacity-expanded tree)
+        self._outputs: collections.deque = collections.deque()  # dispatched segments' outputs, oldest first
+        # The engine's own noise stream (the same on every rank): the model's
+        # generator stays with the model's direct API, which other threads
+        # may call.
+        self._gen = torch.Generator().manual_seed(_NOISE_SEED)
+        self.frames_dispatched = 0  # decoded frames of all dispatched segments
+
+        # ---- the controller's state (rank 0), on the host
+        self._ops: list = []  # the plan of the tick being planned
+        self._written = 0  # host mirror of the batch-common write index
+        self._pos = [0] * slots  # host mirror of the active slots' stream positions
         self._epoch_counter = 0
         self._retired_epochs: set[int] = set()
-        self._voice_cache: dict = {}  # id(voice) -> (voice, capacity-expanded tree)
-
-        self._slots = [_Slot() for _ in range(B)]
+        self._submitted: "weakref.WeakValueDictionary" = weakref.WeakValueDictionary()  # voice key -> voice
+        self._named: dict[str, _NamedVoice] = {}  # predefined voices by name (voice_state)
+        self._voice_requests: collections.deque = collections.deque()  # names to make at the next tick
+        self._slots = [_Slot() for _ in range(slots)]
         self._parked: list[_Parked] = []
         self._parked_by_epoch: dict[int, _Parked] = {}
+        self._free_lanes = list(range(self.max_parked)) if self.preempt else []
         # Observability.
         self.preemptions = 0  # parks, swaps included
         self.resumes = 0  # resumes, swaps included
         self.swaps = 0
         self.compactions = 0
         self.growths = 0
-        self.frames_dispatched = 0  # decoded frames of all dispatched segments
         # Seconds per pipelined tick while any stream is active (run()).
         self.tick_walls: list = []
-        if self.preempt:
-            # Device-resident parking store: max_parked lanes of slot-shaped
-            # state; all parks of a tick write it together, all resumes read it.
-            P = self.max_parked
-            self._store_flow = flow_lm.init_state(P, capacity, dtype=model.flow_state_dtype, device=dev)
-            self._store_mimi = mimi.init_decode_state(P, model.state_dtype, segment_frames, dev)
-            self._store_carry = initial_carry(P, flow_lm.ldim, [0] * P, [0] * P, dev)
-            self._free_lanes = list(range(P))
         self._pending: "queue.Queue[tuple]" = queue.Queue()
         self._next_id = 0
         self._lock = threading.Lock()
+        self._voice_lock = threading.Lock()
         self._stop = threading.Event()
-        # Short segment for the tick right after an admission: new streams
-        # reach their first frame after first_segment_frames of decode.
-        self.first_segment_frames = max(1, min(first_segment_frames, segment_frames))
+        self._running = False
         self._just_admitted = False
         self._ticks_since_short = 1 << 30  # the first admission is always short
         self._deferred: list = []  # oversized items awaiting capacity growth
-        # The engine's own noise stream: the model's generator stays with
-        # the model's direct API, which other threads may call.
-        self._gen = torch.Generator().manual_seed(_NOISE_SEED)
 
     # ------------------------------------------------------------ submission
 
@@ -337,7 +412,11 @@ class TTSEngine:
         Long texts are split into sentence chunks (the direct API's packing);
         the handle's frames span all chunks in order. Raises EngineOverloaded
         (with a retry_after_s estimate) when max_pending is set and the
-        not-yet-admitted backlog is full."""
+        not-yet-admitted backlog is full. On a mesh only rank 0 submits, a
+        voice state the model made (its key names it on every rank)."""
+        if not self._leader:
+            raise RuntimeError(f"submit() on rank {self.mesh.rank}: on a mesh only rank 0 submits requests")
+        self._voice_key(voice_state)
         if self.max_pending is not None:
             backlog = self.backlog
             if backlog >= self.max_pending:
@@ -384,6 +463,43 @@ class TTSEngine:
         self._pending.put((handle, voice_state, fae, max_gen, tokens))
         return handle
 
+    def _voice_key(self, voice: ModelState):
+        """The key that names `voice` in a plan: on a mesh the model's key
+        (the same on every rank), on one card its identity (any voice state
+        goes)."""
+        key = id(voice)
+        if self.mesh is not None:
+            if voice.key is None or self.model._voices.get(voice.key) is not voice:
+                raise ValueError("on a mesh the engine takes the voice states its model made (get_state_for_audio_"
+                                 "prompt or voice_state): a plan names a voice by a key every rank resolves")
+            key = voice.key
+        self._submitted[key] = voice
+        return key
+
+    def voice_state(self, name: str) -> ModelState:
+        """The state of the predefined voice `name` (made once, then cached).
+        On one card it is made in the calling thread; on a mesh rank 0 asks
+        for it and every rank makes it at the next tick boundary, as a plan
+        item (its prefill is a collective), so the call waits for that tick
+        of the running engine."""
+        if self.mesh is None:
+            with self._voice_lock:
+                named = self._named.setdefault(name, _NamedVoice())
+                if named.state is None:
+                    named.state = self.model.get_state_for_audio_prompt(name)
+                return named.state
+        if not self._leader:
+            raise RuntimeError(f"voice_state() on rank {self.mesh.rank}: on a mesh rank 0 asks for voices")
+        with self._voice_lock:
+            named = self._named.get(name)
+            if named is None:
+                named = self._named[name] = _NamedVoice()
+                self._voice_requests.append(name)
+        named.ready.wait()
+        if named.error is not None:
+            raise RuntimeError(f"voice {name!r} could not be made") from named.error
+        return named.state
+
     # ----------------------------------------------------- admission control
 
     @property
@@ -415,27 +531,6 @@ class TTSEngine:
         """Slot or lane indices as a device tensor, queued without a sync."""
         return host_to_device(torch.tensor(values, dtype=torch.long), self.device)
 
-    def _expanded_voice(self, voice_state: ModelState) -> dict:
-        """Voice tree padded to the engine capacity (cached; the entry holds
-        the ModelState so its id() cannot be recycled). Admission copies
-        rows out of it and never writes it."""
-        key = id(voice_state)
-        hit = self._voice_cache.get(key)
-        if hit is None or hit[0] is not voice_state:
-            tree = self.model.flow_lm.expand_state(voice_state.tree, self.capacity)
-            if len(self._voice_cache) >= 16:
-                self._voice_cache.pop(next(iter(self._voice_cache)))
-            hit = (voice_state, tree)
-            self._voice_cache[key] = hit
-        return hit[1]
-
-    def _warm_mimi(self) -> dict:
-        """One-row Mimi state after the zero-latent warmup (deterministic and
-        voice-independent: computed once, copied into every admitted slot)."""
-        if self._warm_mimi_row is None:
-            self._warm_mimi_row = self.model._warm_mimi_state(1, self.segment_frames, self.warmup_frames)
-        return self._warm_mimi_row
-
     def _lead(self, handle: RequestHandle, now: float) -> Optional[float]:
         """Seconds of audio the stream's player holds beyond its playhead;
         None until the first frame (such a stream is never preempted)."""
@@ -454,37 +549,22 @@ class TTSEngine:
     # ------------------------------------------------------------ admission
 
     def _admit_group(self, items: list) -> list:
-        """Copy the voice rows of a group of admissions into their slots: one
-        scatter per state leaf for all slots of one voice.
+        """Plan the copy of the voice rows of a group of admissions into
+        their slots: one scatter per state leaf for all slots of one voice.
 
         items: [(b, handle, voice_state, fae, max_gen, tokens)]. Returns
         [(b, tokens)] for the batched prefill."""
-        warm = self._warm_mimi()
         admitted = []
-        by_voice: dict[int, list] = {}
+        by_voice: dict = {}
         for it in items:
-            by_voice.setdefault(id(it[2]), []).append(it)
-        tstate = self.flow_state["transformer"]
-        for group in by_voice.values():
+            by_voice.setdefault(self._voice_key(it[2]), []).append(it)
+        for key, group in by_voice.items():
             voice_state = group[0][2]
             # The batch write index must clear the voice's own rows, or the
             # next prefill would overwrite them.
             self._written = max(self._written, voice_state.written)
-            slots = [b for b, *_ in group]
-            idx = self._index(slots)
-            _put(tstate, self._expanded_voice(voice_state)["transformer"], idx)
-            tstate["widx"] = max(tstate["widx"], self._written)
-            for b in slots:
-                self.flow_state["pos"][b] = voice_state.pos[0]
-            _put(self.mimi_state, warm, idx)
-            carry = self.carry
-            carry["latent"].index_fill_(0, idx, 0.0)
-            carry["is_bos"].index_fill_(0, idx, True)
-            carry["eos_step"].index_fill_(0, idx, _EOS_NEVER)
-            carry["step"].index_fill_(0, idx, 0)
-            counts = host_to_device(torch.tensor([[it[3] for it in group], [it[4] for it in group]]), self.device)
-            carry["frames_after_eos"].index_copy_(0, idx, counts[0].to(carry["frames_after_eos"].dtype))
-            carry["max_gen"].index_copy_(0, idx, counts[1].to(carry["max_gen"].dtype))
+            self._ops.append(("admit", key, [it[0] for it in group], [it[3] for it in group],
+                              [it[4] for it in group], voice_state.pos[0], self._written))
             for b, handle, voice, fae, max_gen, tokens in group:
                 self._pos[b] = voice.pos[0]
                 slot = self._slots[b]
@@ -496,22 +576,17 @@ class TTSEngine:
         return admitted
 
     def _prefill_admitted(self, admitted: list[tuple[int, list[int]]]) -> None:
-        """One batched prefill for all newly admitted slots (others at
+        """Plan one batched prefill for all newly admitted slots (others at
         length 0, which write only invalid rows), at the smallest bucketed
         width that holds the longest text."""
-        B = self.num_slots
         longest = max((len(toks) for _, toks in admitted), default=0)
         width = next(w for w in self.prefill_buckets if w >= min(longest, self.text_pad))
-        tokens = torch.zeros(B, width, dtype=torch.long)
-        lengths = [0] * B
+        rows = []
         for b, toks in admitted:
-            toks = toks[:width]
-            tokens[b, : len(toks)] = torch.tensor(toks, dtype=torch.long)
-            lengths[b] = len(toks)
+            toks = list(toks[:width])
+            rows.append((b, toks))
             self._pos[b] += len(toks)
-        fl, flow_params = self.model.flow_lm, self.model.params["flow_lm"]
-        emb = fl.embed_text(flow_params, host_to_device(tokens, self.device))
-        self.flow_state = fl.prefill(flow_params, self.flow_state, emb, lengths)
+        self._ops.append(("prefill", width, rows))
         self._written += width
 
     # ------------------------------------------------------------ preemption
@@ -522,12 +597,7 @@ class TTSEngine:
         admission contract, widx >= valid), Mimi state and carry as they are.
         plan: [(slot, lead)]; the caller guarantees a free lane each."""
         lanes = [self._free_lanes.pop() for _ in plan]
-        slots = [b for b, _ in plan]
-        src, dst = self._index(slots), self._index(lanes)
-        rows = self.model.flow_lm.compact_state(_take(self.flow_state, src), 0)
-        _put(self._store_flow, rows, dst)
-        _put(self._store_mimi, _take(self.mimi_state, src), dst)
-        _put(self._store_carry, _take(self.carry, src), dst)
+        self._ops.append(("park", [b for b, _ in plan], lanes))
         for (b, lead), lane in zip(plan, lanes):
             slot = self._slots[b]
             parked = _Parked(handle=slot.handle, lane=lane, pos=self._pos[b],
@@ -564,7 +634,6 @@ class TTSEngine:
     def _restore(self, parked: _Parked, b: int) -> None:
         """Host bookkeeping of a parked stream entering slot b."""
         self._pos[b] = parked.pos
-        self.flow_state["pos"][b] = parked.pos
         slot = self._slots[b]
         slot.active, slot.handle, slot.frames_left = True, parked.handle, parked.frames_left
         self._epoch_counter += 1
@@ -572,21 +641,16 @@ class TTSEngine:
         self.resumes += 1
 
     def _execute_resumes(self, plan: list[tuple[_Parked, int]]) -> bool:
-        """Copy the planned parked lanes back into their slots, all at once:
-        the mirror of admission, with the streams' own Mimi state and
+        """Plan the copy of the parked lanes back into their slots, all at
+        once: the mirror of admission, with the streams' own Mimi state and
         mid-flight carry."""
         live = self._live(plan)
         if not live:
             return False
-        src, dst = self._index([p.lane for p, _ in live]), self._index([b for _, b in live])
         widx_new = max(p.valid for p, _ in live)
-        tstate = self.flow_state["transformer"]
-        _put(tstate, _take(self._store_flow, src)["transformer"], dst)
-        # Resumed rows hold entries in [0, valid): the write index clears them.
-        tstate["widx"] = max(tstate["widx"], widx_new)
-        _put(self.mimi_state, _take(self._store_mimi, src), dst)
-        _put(self.carry, _take(self._store_carry, src), dst)
         self._written = max(self._written, widx_new)
+        self._ops.append(("resume", [p.lane for p, _ in live], [b for _, b in live], [p.pos for p, _ in live],
+                          widx_new))
         for parked, b in live:
             self._drop_parked(parked)
             self._restore(parked, b)
@@ -594,28 +658,16 @@ class TTSEngine:
         return True
 
     def _execute_swaps(self, plan: list[tuple[_Parked, int, float]]) -> bool:
-        """Exchange the planned victim slots' state with parked lanes' state:
-        a park and a resume fused, so no free lane is needed. Both sides are
-        read (copied) before either is written. plan: [(parked, slot,
-        victim_lead)]."""
+        """Plan the exchange of the victim slots' state with parked lanes'
+        state: a park and a resume fused, so no free lane is needed. plan:
+        [(parked, slot, victim_lead)]."""
         live = self._live(plan)
         if not live:
             return False
-        lanes, slots = self._index([p.lane for p, _, _ in live]), self._index([b for _, b, _ in live])
-        victims_flow = self.model.flow_lm.compact_state(_take(self.flow_state, slots), 0)
-        victims_mimi, victims_carry = _take(self.mimi_state, slots), _take(self.carry, slots)
-        rows_flow = _take(self._store_flow, lanes)
-        rows_mimi, rows_carry = _take(self._store_mimi, lanes), _take(self._store_carry, lanes)
-        _put(self._store_flow, victims_flow, lanes)
-        _put(self._store_mimi, victims_mimi, lanes)
-        _put(self._store_carry, victims_carry, lanes)
         widx_new = max(p.valid for p, _, _ in live)
-        tstate = self.flow_state["transformer"]
-        _put(tstate, rows_flow["transformer"], slots)
-        tstate["widx"] = max(tstate["widx"], widx_new)
-        _put(self.mimi_state, rows_mimi, slots)
-        _put(self.carry, rows_carry, slots)
         self._written = max(self._written, widx_new)
+        self._ops.append(("swap", [p.lane for p, _, _ in live], [b for _, b, _ in live],
+                          [p.pos for p, _, _ in live], widx_new))
         for parked, b, lead in live:
             slot = self._slots[b]
             victim = _Parked(handle=slot.handle, lane=parked.lane, pos=self._pos[b],
@@ -662,27 +714,24 @@ class TTSEngine:
     # ------------------------------------------------------------ growth and compaction
 
     def _maybe_grow(self) -> None:
-        """Expand the KV cache (and the parking store, whose rows sit
-        compacted at the row front) to the pending target capacity, at a tick
-        boundary, then reclaim dead rows if that lowers the write index."""
+        """Plan the expansion of the KV cache (and of the parking store,
+        whose rows sit compacted at the row front) to the pending target
+        capacity, at a tick boundary, then reclaim dead rows if that lowers
+        the write index."""
         with self._lock:
             target = self._target_capacity
         if target <= self.capacity:
             return
         logger.info("engine: growing KV capacity %d -> %d", self.capacity, target)
-        fl = self.model.flow_lm
-        self.flow_state = fl.expand_state(self.flow_state, target)
-        if self.preempt:
-            self._store_flow = fl.expand_state(self._store_flow, target)
+        self._ops.append(("grow", target))
         self.capacity = target
-        self._voice_cache.clear()  # cached voices are padded to the old size
         self.growths += 1
         max_valid = _ceil8(max(self._pos) + 1)
         if max_valid < self._written:
             self._compact(max_valid)
 
     def _compact(self, new_written: int) -> None:
-        self.flow_state = self.model.flow_lm.compact_state(self.flow_state, new_written)
+        self._ops.append(("compact", new_written))
         self._written = new_written
         self.compactions += 1
 
@@ -698,18 +747,21 @@ class TTSEngine:
     # ------------------------------------------------------------ main loop
 
     def _admit_pending(self, block_seconds: float = 0.0) -> bool:
-        """Admit queued requests; returns True if slot contents changed.
+        """Plan the admission of queued requests; returns True if slot
+        contents changed.
 
         Slot assignment within a tick: (1) urgent parked streams (lead below
         resume_urgent_lead_s) take free slots first, or swap with a running
         stream holding swap_margin_s more lead; (2) pending requests take the
         remaining free slots, and past those preempt the running streams
         with the most lead; (3) other parked streams fill what is left. The
-        tick plans every move first, then runs one group park, one group
-        swap, one group admission (+ one prefill) and one group resume.
+        tick plans every move first, then one group park, one group swap, one
+        group admission (+ one prefill) and one group resume.
 
         With block_seconds > 0 the first fetch blocks briefly (the idle run
         loop's wait)."""
+        while self._voice_requests:
+            self._ops.append(("voice", self._voice_requests.popleft()))
         self._maybe_grow()
         self._sweep_parked()
         now = time.monotonic()
@@ -836,25 +888,10 @@ class TTSEngine:
             horizon = self._epoch_counter - 2 * self.num_slots
             self._retired_epochs = {e for e in self._retired_epochs if e > horizon}
 
-    def _to_host(self, tensors: list[torch.Tensor]):
-        """Queue device->host copies of `tensors` into pinned buffers and
-        record an event that _deliver waits on: no host sync at dispatch.
-        On the CPU the tensors are the host copies."""
-        if self.device.type != "cuda":
-            return tensors, None
-        out = []
-        for t in tensors:
-            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            host.copy_(t, non_blocking=True)
-            out.append(host)
-        event = torch.cuda.Event()
-        event.record()
-        return out, event
-
     def _dispatch_segment(self):
-        """Queue one decode segment of every slot on the device; returns what
-        _deliver needs. Reads nothing back from the device, so a caller may
-        dispatch the next segment before delivering this one (run())."""
+        """Plan one decode segment of every slot; returns what _deliver
+        needs. The segment reads nothing back from the device, so a caller
+        may dispatch the next segment before delivering this one (run())."""
         self._maybe_compact()
         if self._just_admitted:
             frames = self.first_segment_frames
@@ -863,40 +900,24 @@ class TTSEngine:
         else:
             frames = self.segment_frames
             self._ticks_since_short += 1
-        model, B = self.model, self.num_slots
-        noise = sample_noise(self._gen, (frames, B, model.flow_lm.ldim), model.temp, model.noise_clamp, self.device)
-        self.flow_state, self.mimi_state, self.carry, audio, emit, _ = run_segment(
-            model.flow_lm, model.mimi, model.params, self.flow_state, self.mimi_state, self.carry, noise,
-            model.lsd_decode_steps, model.eos_threshold, emit_pcm16=self.emit_pcm16,
-        )
-        self._written += frames
-        self.frames_dispatched += frames
         # Slot ownership at dispatch time: delivery touches only the (slot,
         # handle, epoch) triples that decoded in THIS segment.
         rows = [(b, s.handle, s.epoch) for b, s in enumerate(self._slots) if s.active]
         for b, _, _ in rows:
             self._pos[b] += frames
             self._slots[b].frames_left -= frames
-        # At partial occupancy only the active rows' audio leaves the device.
-        fetch_rows = None
-        if len(rows) < B:
-            idx = self._index([b for b, _, _ in rows])
-            audio, emit = audio.index_select(0, idx), emit.index_select(0, idx)
-            fetch_rows = rows
-        # Snapshot of the carry fields delivery reads: frames_after_eos and
-        # max_gen are written in place by later admissions and cancellations.
-        c = self.carry
-        counters = torch.stack([c["eos_step"], c["step"], c["frames_after_eos"].to(c["step"].dtype),
-                                c["max_gen"].to(c["step"].dtype)])
-        host, event = self._to_host([audio, emit, counters])
-        return rows, fetch_rows, host, event
+        self._written += frames
+        # At partial occupancy on one card only the active rows' audio leaves
+        # the device; a mesh fetches every row (as the JAX engine does).
+        fetch_rows = rows if self.mesh is None and len(rows) < self.num_slots else None
+        self._ops.append(("segment", frames, None if fetch_rows is None else [b for b, _, _ in rows]))
+        return rows, fetch_rows
 
     def _deliver(self, dispatched) -> int:
-        """Wait for a dispatched segment's outputs, push frames, retire slots."""
-        rows, fetch_rows, host, event = dispatched
-        if event is not None:
-            event.synchronize()
-        audio_np, emit_np, counters = (t.numpy() for t in host)
+        """Wait for a dispatched segment's outputs, push frames, retire slots.
+        A cancelled stream's `max_gen = 0` write goes into the next plan."""
+        rows, fetch_rows = dispatched
+        audio_np, emit_np, counters = self._fetch()
         eos_step, step, fae_np, max_gen_np = counters
         for i, (b, handle, epoch) in enumerate(rows):
             r = i if fetch_rows is not None else b
@@ -912,7 +933,7 @@ class TTSEngine:
                 if slot.epoch == epoch:
                     slot.active = False
                     slot.handle = None
-                    self.carry["max_gen"][b] = 0  # the still-running decode emits nothing
+                    self._ops.append(("cancel", [b]))  # the still-running decode emits nothing
                 continue
             now = time.monotonic()
             for s in range(emit_np.shape[1]):
@@ -944,13 +965,40 @@ class TTSEngine:
                     slot.handle = None
         return sum(s.active for s in self._slots)
 
+    def _flush(self, deliveries: int = 0, end: bool = False) -> None:
+        """Run the planned tick: on a mesh broadcast it to every rank, with
+        the number of deliveries that follow it and whether it ends the
+        followers' loop, then apply it here."""
+        ops, self._ops = self._ops, []
+        if self.mesh is not None:
+            broadcast_from_rank0(self.mesh, (ops, deliveries, end))
+        self._apply(ops)
+
+    def _follow(self) -> None:
+        """A follower's loop: apply rank 0's plans and take part in their
+        deliveries until a plan ends it."""
+        while True:
+            ops, deliveries, end = broadcast_from_rank0(self.mesh)
+            self._apply(ops)
+            for _ in range(deliveries):
+                self._fetch()
+            if end:
+                return
+
     @torch.no_grad()
     def step(self) -> int:
-        """Admit, decode one segment, deliver its frames (synchronous tick)."""
-        self._admit_pending()
-        if not any(s.active for s in self._slots):
+        """Admit, decode one segment, deliver its frames (synchronous tick).
+        On a mesh rank 0 steps; every other rank's step() follows rank 0's
+        plans until its run() or stop() ends them (and returns 0)."""
+        if not self._leader:
+            self._follow()
             return 0
-        return self._deliver(self._dispatch_segment())
+        self._admit_pending()
+        dispatched = self._dispatch_segment() if any(s.active for s in self._slots) else None
+        self._flush(deliveries=int(dispatched is not None))
+        if dispatched is None:
+            return 0
+        return self._deliver(dispatched)
 
     @torch.no_grad()
     def run(self, stop_when_idle: bool = True, max_ticks: Optional[int] = None) -> None:
@@ -959,7 +1007,26 @@ class TTSEngine:
 
         Pipelined: segment k+1 is queued before segment k's outputs are read,
         so the device decodes while the host delivers frames. Retirement lags
-        one segment; admission rewrites a slot's rows, so that is safe."""
+        one segment; admission rewrites a slot's rows, so that is safe. On a
+        mesh every rank calls run(): rank 0's ends every rank's."""
+        if not self._leader:
+            self._follow()
+            return
+        with self._lock:
+            self._running = True
+        try:
+            self._run(stop_when_idle, max_ticks)
+        except BaseException as exc:
+            for named in self._named.values():  # wake voice_state() waiters
+                if not named.ready.is_set():
+                    named.error = exc
+                    named.ready.set()
+            raise
+        finally:
+            with self._lock:
+                self._running = False
+
+    def _run(self, stop_when_idle: bool, max_ticks: Optional[int]) -> None:
         in_flight = None
         idle_ticks = 0
         ticks = 0
@@ -976,32 +1043,44 @@ class TTSEngine:
             short_tick = self._just_admitted  # consumed by _dispatch_segment
             any_active = any(s.active for s in self._slots)
             dispatched = self._dispatch_segment() if any_active else None
-            if in_flight is not None:
-                self._deliver(in_flight)
+            deliveries = [] if in_flight is None else [in_flight]
             if dispatched is not None and short_tick:
                 # The tick after an admission carries the new streams' first
                 # frames: deliver it now rather than one tick later.
-                self._deliver(dispatched)
+                deliveries.append(dispatched)
                 dispatched = None
+            self._flush(len(deliveries))
+            for d in deliveries:
+                self._deliver(d)
             in_flight = dispatched
             ticks += any_active
             if max_ticks is not None and ticks >= max_ticks:
                 break
             if (not any_active and in_flight is None and self._pending.empty() and not self._deferred
-                    and not self._parked):
+                    and not self._parked and not self._voice_requests):
                 idle_ticks += 1
                 if stop_when_idle and idle_ticks > 1:
                     break
             else:
                 idle_ticks = 0
+        self._flush(int(in_flight is not None), end=self.mesh is not None)
         if in_flight is not None:
             self._deliver(in_flight)
         self._stop.clear()
 
     def stop(self) -> None:
         """Make the running (or the next) run() return at its next tick, with
-        nothing in flight (ends serve_forever_in_thread's loop)."""
-        self._stop.set()
+        nothing in flight (ends serve_forever_in_thread's loop). On a mesh,
+        rank 0's stop() with no run() under way ends the followers' loop at
+        once (after a step()-driven session); on other ranks it does
+        nothing."""
+        if not self._leader:
+            return
+        with self._lock:
+            if self.mesh is not None and not self._running:
+                self._flush(end=True)
+                return
+            self._stop.set()
 
     def frame_lateness(self, handle: RequestHandle, frame_seconds: float = 0.08) -> np.ndarray:
         """Per-frame playback lateness of one completed stream: playback
@@ -1028,3 +1107,203 @@ class TTSEngine:
             trees += [self._store_flow, self._store_mimi, self._store_carry]
         for tree in trees:
             yield from _tensors(tree)
+
+    # ------------------------------------------------------------ the executor
+    #
+    # Each plan item is (op, args...) with slots, lanes and write indices in
+    # the whole engine's numbering; every rank applies it to the slots it
+    # holds. The write index is batch-common and moves on every rank.
+
+    def _apply(self, ops: list) -> None:
+        for op, *args in ops:
+            getattr(self, f"_op_{op}")(*args)
+
+    def _held(self, slots: list[int]) -> tuple[list[int], list[int]]:
+        """(positions in `slots`, local rows) of the slots this rank holds."""
+        pick = [i for i, b in enumerate(slots) if self._lo <= b < self._hi]
+        return pick, [slots[i] - self._lo for i in pick]
+
+    def _voice(self, key) -> ModelState:
+        voice = self._submitted.get(key) if self._leader else None
+        return voice if voice is not None else self.model._voice_by_key(key)
+
+    def _expanded_voice(self, key) -> dict:
+        """Voice tree padded to the engine capacity (cached; the entry holds
+        the ModelState, so an id() key cannot be recycled).
+        Admission copies rows out of it and never writes it."""
+        voice = self._voice(key)
+        hit = self._voice_cache.get(key)
+        if hit is None or hit[0] is not voice:
+            tree = self.model.flow_lm.expand_state(voice.tree, self.model.flow_lm.state_capacity(self.flow_state))
+            if len(self._voice_cache) >= 16:
+                self._voice_cache.pop(next(iter(self._voice_cache)))
+            hit = (voice, tree)
+            self._voice_cache[key] = hit
+        return hit[1]
+
+    def _warm_mimi(self) -> dict:
+        """One-row Mimi state after the zero-latent warmup (deterministic and
+        voice-independent: computed once, copied into every admitted slot;
+        on a mesh a tp-collective decode that every rank runs at its first
+        admission)."""
+        if self._warm_mimi_row is None:
+            self._warm_mimi_row = self.model._warm_mimi_state(1, self.segment_frames, self.warmup_frames)
+        return self._warm_mimi_row
+
+    def _slot_rows(self, slots: list[int]) -> list:
+        """Copies of rows `slots` of the FlowLM state (compacted to the row
+        front), the Mimi state and the carry, on every rank: on a dp-sharded
+        engine each rank takes the rows it holds (its first row in place of
+        another rank's) and one all_gather over dp hands every rank the
+        holder's rows."""
+        idx = self._index([b - self._lo if self._lo <= b < self._hi else 0 for b in slots])
+        rows = [self.model.flow_lm.compact_state(_take(self.flow_state, idx), 0), _take(self.mimi_state, idx),
+                _take(self.carry, idx)]
+        if self._sharded:
+            per_rank = self._hi - self._lo
+            _share_rows(self.mesh, rows, [b // per_rank for b in slots])
+        return rows
+
+    def _enter(self, local: list[int], positions: list[int], rows: list) -> None:
+        """Write `rows` (FlowLM, Mimi and carry trees, one row per entry of
+        `local`) into this rank's rows `local`, with their stream positions."""
+        if not local:
+            return
+        dst = self._index(local)
+        _put(self.flow_state["transformer"], rows[0]["transformer"], dst)
+        _put(self.mimi_state, rows[1], dst)
+        _put(self.carry, rows[2], dst)
+        for row, pos in zip(local, positions):
+            self.flow_state["pos"][row] = pos
+
+    def _stored_rows(self, lanes: list[int]) -> list:
+        idx = self._index(lanes)
+        return [_take(self._store_flow, idx), _take(self._store_mimi, idx), _take(self._store_carry, idx)]
+
+    def _raise_widx(self, widx: int) -> None:
+        tstate = self.flow_state["transformer"]
+        tstate["widx"] = max(tstate["widx"], widx)
+
+    def _op_voice(self, name: str) -> None:
+        state = self.model.get_state_for_audio_prompt(name)  # a collective prefill on a mesh
+        if self._leader:
+            named = self._named[name]
+            named.state = state
+            named.ready.set()
+        else:
+            self._named[name] = _NamedVoice(state)  # held, so rank 0's key resolves here
+
+    def _op_grow(self, capacity: int) -> None:
+        fl = self.model.flow_lm
+        self.flow_state = fl.expand_state(self.flow_state, capacity)
+        if self.preempt:
+            self._store_flow = fl.expand_state(self._store_flow, capacity)
+        self._voice_cache.clear()  # cached voices are padded to the old size
+
+    def _op_compact(self, new_written: int) -> None:
+        self.flow_state = self.model.flow_lm.compact_state(self.flow_state, new_written)
+
+    def _op_park(self, slots: list[int], lanes: list[int]) -> None:
+        dst = self._index(lanes)
+        for store, rows in zip((self._store_flow, self._store_mimi, self._store_carry), self._slot_rows(slots)):
+            _put(store, rows, dst)
+
+    def _op_swap(self, lanes: list[int], slots: list[int], positions: list[int], widx: int) -> None:
+        # Both sides are read (copied) before either is written.
+        pick, local = self._held(slots)
+        entering = self._stored_rows([lanes[i] for i in pick])
+        self._op_park(slots, lanes)
+        self._raise_widx(widx)
+        self._enter(local, [positions[i] for i in pick], entering)
+
+    def _op_resume(self, lanes: list[int], slots: list[int], positions: list[int], widx: int) -> None:
+        # Resumed rows hold entries in [0, valid): the write index clears them.
+        pick, local = self._held(slots)
+        self._raise_widx(widx)
+        self._enter(local, [positions[i] for i in pick], self._stored_rows([lanes[i] for i in pick]))
+
+    def _op_admit(self, key, slots: list[int], faes: list[int], max_gens: list[int], pos0: int, written: int) -> None:
+        warm = self._warm_mimi()
+        self._raise_widx(written)
+        pick, local = self._held(slots)
+        if not local:
+            return
+        idx = self._index(local)
+        _put(self.flow_state["transformer"], self._expanded_voice(key)["transformer"], idx)
+        for row in local:
+            self.flow_state["pos"][row] = pos0
+        _put(self.mimi_state, warm, idx)
+        carry = self.carry
+        carry["latent"].index_fill_(0, idx, 0.0)
+        carry["is_bos"].index_fill_(0, idx, True)
+        carry["eos_step"].index_fill_(0, idx, _EOS_NEVER)
+        carry["step"].index_fill_(0, idx, 0)
+        counts = host_to_device(torch.tensor([[faes[i] for i in pick], [max_gens[i] for i in pick]]), self.device)
+        carry["frames_after_eos"].index_copy_(0, idx, counts[0].to(carry["frames_after_eos"].dtype))
+        carry["max_gen"].index_copy_(0, idx, counts[1].to(carry["max_gen"].dtype))
+
+    def _op_prefill(self, width: int, rows: list) -> None:
+        B = self._hi - self._lo
+        tokens = torch.zeros(B, width, dtype=torch.long)
+        lengths = [0] * B
+        for b, toks in rows:
+            if self._lo <= b < self._hi:
+                tokens[b - self._lo, : len(toks)] = torch.tensor(toks, dtype=torch.long)
+                lengths[b - self._lo] = len(toks)
+        fl, flow_params = self.model.flow_lm, self.model.params["flow_lm"]
+        emb = fl.embed_text(flow_params, host_to_device(tokens, self.device))
+        self.flow_state = fl.prefill(flow_params, self.flow_state, emb, lengths)
+
+    def _op_cancel(self, slots: list[int]) -> None:
+        _, local = self._held(slots)
+        if local:
+            self.carry["max_gen"].index_fill_(0, self._index(local), 0)
+
+    def _op_segment(self, frames: int, fetch: Optional[list[int]]) -> None:
+        model = self.model
+        # The whole batch's noise on every rank (one generator stream), this
+        # rank's rows of it.
+        noise = sample_noise(self._gen, (frames, self.num_slots, model.flow_lm.ldim), model.temp, model.noise_clamp)
+        noise = host_to_device(noise[:, self._lo : self._hi].contiguous(), self.device)
+        self.flow_state, self.mimi_state, self.carry, audio, emit, _ = run_segment(
+            model.flow_lm, model.mimi, model.params, self.flow_state, self.mimi_state, self.carry, noise,
+            model.lsd_decode_steps, model.eos_threshold, emit_pcm16=self.emit_pcm16,
+        )
+        self.frames_dispatched += frames
+        if fetch is not None:
+            idx = self._index(fetch)
+            audio, emit = audio.index_select(0, idx), emit.index_select(0, idx)
+        # Snapshot of the carry fields delivery reads: frames_after_eos and
+        # max_gen are written in place by later admissions and cancellations.
+        c = self.carry
+        counters = torch.stack([c["eos_step"], c["step"], c["frames_after_eos"].to(c["step"].dtype),
+                                c["max_gen"].to(c["step"].dtype)])
+        self._outputs.append(self._to_host([audio, emit, counters]))
+
+    def _to_host(self, tensors: list[torch.Tensor]):
+        """Queue device->host copies of `tensors` into pinned buffers and
+        record an event that _fetch waits on: no host sync at dispatch.
+        On the CPU the tensors are the host copies."""
+        if self.device.type != "cuda":
+            return tensors, None
+        out = []
+        for t in tensors:
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t, non_blocking=True)
+            out.append(host)
+        event = torch.cuda.Event()
+        event.record()
+        return out, event
+
+    def _fetch(self) -> list:
+        """The oldest undelivered segment's audio, emit flags and counters on
+        the host; on a dp-sharded engine those of every slot, gathered over
+        dp."""
+        host, event = self._outputs.popleft()
+        if event is not None:
+            event.synchronize()
+        arrays = [t.numpy() for t in host]
+        if self._sharded:
+            parts = all_gather_dp(self.mesh, arrays)
+            arrays = [np.concatenate([p[i] for p in parts], axis=1 if i == 2 else 0) for i in range(3)]
+        return arrays

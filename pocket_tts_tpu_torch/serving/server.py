@@ -14,7 +14,6 @@ from __future__ import annotations
 
 import argparse
 import logging
-import threading
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
@@ -51,16 +50,11 @@ class _Chunked:
 
 def make_handler(model: TTSModel, engine: TTSEngine):
     """The request handler class of a server over `engine`. Handler threads
-    build the states of predefined voices (one at a time, cached) and
-    submit; the engine's thread does all the decoding."""
-    voice_cache: dict = {}
-    voice_lock = threading.Lock()
-
-    def voice_state(name: str):
-        with voice_lock:
-            if name not in voice_cache:
-                voice_cache[name] = model.get_state_for_audio_prompt(name)
-            return voice_cache[name]
+    take the states of predefined voices from the engine (made once, cached:
+    engine.voice_state) and submit; the engine's thread does all the
+    decoding. On a mesh the server runs on rank 0 while every other rank
+    runs engine.run(), and a voice's first request waits for the tick at
+    which every rank makes it."""
 
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
@@ -84,7 +78,7 @@ def make_handler(model: TTSModel, engine: TTSEngine):
                 self.send_error(400, f"unknown voice; use one of {list(PREDEFINED_VOICES)}")
                 return
             try:
-                handle = engine.submit(text, voice_state(voice))
+                handle = engine.submit(text, engine.voice_state(voice))
             except EngineOverloaded as exc:
                 # Backpressure, not failure: tell the client when a backlog's
                 # worth of work will have drained.

@@ -40,7 +40,14 @@ from pocket_tts_tpu_torch.models.weights import named_leaves, params_from_jax
 from pocket_tts_tpu_torch.ops.attention import _project_qkv
 from pocket_tts_tpu_torch.ops.norms import layer_norm
 from pocket_tts_tpu_torch.ops.rope import apply_rope, rope_angles
-from pocket_tts_tpu_torch.parallel.dryrun import DRYRUN_TEXTS, dryrun_multichip, summarize
+from pocket_tts_tpu_torch.parallel.dryrun import (
+    DRYRUN_TEXTS,
+    ENGINE_KW,
+    dryrun_multichip,
+    engine_session,
+    engine_voice,
+    summarize,
+)
 from pocket_tts_tpu_torch.parallel.launch import launch
 from pocket_tts_tpu_torch.parallel.mesh import (
     Mesh,
@@ -51,7 +58,6 @@ from pocket_tts_tpu_torch.parallel.mesh import (
     shard_leaf,
     state_sharding_spec,
 )
-from pocket_tts_tpu_torch.serving.engine import TTSEngine
 from tiny_config import TINY, tiny_config
 
 TEXTS = ["hello world", "the quick brown fox", "one two three four", "ok"]  # tests/test_parallel.py:178
@@ -458,11 +464,6 @@ def test_no_collective_without_a_mesh(port_params, monkeypatch):
     assert len(out) == 2
 
 
-def test_engine_refuses_a_mesh_model():
-    with pytest.raises(NotImplementedError, match="mesh"):
-        TTSEngine(types.SimpleNamespace(mesh=Mesh(dp=2, tp=1), device=torch.device("cpu")))
-
-
 # ---------------------------------------------------------------- launcher and dry run
 
 
@@ -496,8 +497,12 @@ def test_dryrun_multichip_on_the_cpu(world):
     tp=2, no kernel launches (CPU tensors take the plain versions), and its
     batch audio equals the unsharded model's: at JAX's mesh tolerance with
     bf16 KV, within chip_smoke.py's TOL_MESH_AUDIO (3% of the stream's peak)
-    with int8 KV."""
+    with int8 KV. The engine stage's first step delivers 2 frames of each of
+    its 8 streams, its churn arrival parks a stream that resumes, every rank
+    decodes the same frames, and its temperature-0 session gives the
+    unsharded engine's audio at JAX's mesh tolerance."""
     from pocket_tts_tpu_torch.models.tts_model import TTSModel
+    from pocket_tts_tpu_torch.serving.engine import TTSEngine
 
     ranks, tmp = world
     config = str(tmp / "tiny.yaml")
@@ -505,6 +510,16 @@ def test_dryrun_multichip_on_the_cpu(world):
     assert (out["dp"], out["tp"], out["backend"]) == (2, 2, "gloo")
     assert out["segment_audio"].shape == (4, 2, 1920) and np.isfinite(out["toy_loss"])
     assert all(n == 0 for rank in out["launches"] for kv in rank.values() for n in kv.values())
+    tick, exact = out["engine"]["tick"], out["engine"]["exact"]
+    assert tick["first_frames"] == 2 * 8 and tick["parks"] >= 1 and tick["resumes"] >= 1
+    assert len({r["frames"] for r in out["engine_ranks"]}) == 1 and out["engine_ranks"][0]["frames"] > 0
+    assert all(n == 0 for r in out["engine_ranks"] for n in r["launches"].values())
+    model = TTSModel.load_model(config, temp=0.0, eos_threshold=1e9, param_dtype="int8", device="cpu")
+    ref = engine_session(TTSEngine(model, **ENGINE_KW), engine_voice(model), to_end=True)
+    assert (exact["parks"], exact["resumes"]) == (ref["parks"], ref["resumes"])
+    assert [g.shape for g in exact["audio"]] == [r.shape for r in ref["audio"]]
+    for g, r in zip(exact["audio"], ref["audio"]):
+        np.testing.assert_allclose(g, r, rtol=1e-4, atol=2e-5)
     for kv in ("bf16", "int8"):
         model = TTSModel.load_model(config, temp=0.0, eos_threshold=1e9, param_dtype="int8", device="cpu",
                                     kv_int8=kv == "int8")
