@@ -1,0 +1,9 @@
+"""CPU self-checks of the benchmark (not part of the repository's test
+suite): python -m pytest bench_torch/tests -q"""
+
+import sys
+from pathlib import Path
+
+BENCH = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(BENCH))
+sys.path.insert(1, str(BENCH.parent))
