@@ -7,6 +7,8 @@ the model carries packed int8 kernel weights, the cache is not int8 and
 S % 8 == 0; otherwise it loops over frames with flow_lm.decode_step, whose
 B=1 int8 steps run the per-frame kernel (ops/fused_backbone.fused_backbone_step)
 and whose batch steps attend through ops/batch_attention.batch_decode_attention.
+With the span recorder on (utils/trace.py), `segment.flow` covers the FlowLM
+frames and `segment.mimi` the vocode.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 from pocket_tts_tpu_torch.models.flow_lm import FlowLMModel
 from pocket_tts_tpu_torch.models.mimi import MimiModel
 from pocket_tts_tpu_torch.ops.fused_segment import fused_segment_decode
+from pocket_tts_tpu_torch.utils import trace
 
 
 def decode_mimi_chunk(flow_params, mimi_params, mimi: MimiModel, latents, mimi_state):
@@ -76,30 +79,31 @@ def run_segment(
     as a host bool, one device read per segment."""
     flow_params, mimi_params = params["flow_lm"], params["mimi"]
     S, B, _ = noise_seq.shape
-    if segment_kernel_ok(flow_lm, flow_params, flow_state, lsd_decode_steps, S):
-        tstate = flow_state["transformer"]
-        layers = tstate["layers"]
-        lat, eos_logits = fused_segment_decode(
-            flow_params["fused_backbone"], flow_params["fused_flow"], carry["latent"], carry["is_bos"],
-            noise_seq[:, 0, :], [l["k"] for l in layers], [l["v"] for l in layers],
-            layers[0]["slot_pos"], flow_state["pos"][0], tstate["widx"],
-        )
-        tstate["widx"] += S
-        flow_state["pos"] = [p + S for p in flow_state["pos"]]
-        latents = lat[:, None, :]  # [S, 1, ldim]
-        eos_flags = (eos_logits > eos_threshold)[:, None]  # [S, 1]
-    else:
-        latent, is_bos = carry["latent"], carry["is_bos"]
-        lat_list, eos_list = [], []
-        for i in range(S):
-            flow_state, latent, is_eos = flow_lm.decode_step(
-                flow_params, flow_state, latent, is_bos, noise_seq[i], lsd_decode_steps, eos_threshold,
-                read_limit=read_limit,
+    with trace.span("segment.flow"):
+        if segment_kernel_ok(flow_lm, flow_params, flow_state, lsd_decode_steps, S):
+            tstate = flow_state["transformer"]
+            layers = tstate["layers"]
+            lat, eos_logits = fused_segment_decode(
+                flow_params["fused_backbone"], flow_params["fused_flow"], carry["latent"], carry["is_bos"],
+                noise_seq[:, 0, :], [l["k"] for l in layers], [l["v"] for l in layers],
+                layers[0]["slot_pos"], flow_state["pos"][0], tstate["widx"],
             )
-            is_bos = False
-            lat_list.append(latent)
-            eos_list.append(is_eos)
-        latents, eos_flags = torch.stack(lat_list), torch.stack(eos_list)
+            tstate["widx"] += S
+            flow_state["pos"] = [p + S for p in flow_state["pos"]]
+            latents = lat[:, None, :]  # [S, 1, ldim]
+            eos_flags = (eos_logits > eos_threshold)[:, None]  # [S, 1]
+        else:
+            latent, is_bos = carry["latent"], carry["is_bos"]
+            lat_list, eos_list = [], []
+            for i in range(S):
+                flow_state, latent, is_eos = flow_lm.decode_step(
+                    flow_params, flow_state, latent, is_bos, noise_seq[i], lsd_decode_steps, eos_threshold,
+                    read_limit=read_limit,
+                )
+                is_bos = False
+                lat_list.append(latent)
+                eos_list.append(is_eos)
+            latents, eos_flags = torch.stack(lat_list), torch.stack(eos_list)
 
     # Vectorized EOS bookkeeping: the running eos_step at frame i (after
     # folding frame i's own flag) is the prefix-min of flagged step indices.
@@ -116,9 +120,10 @@ def run_segment(
         "step": carry["step"] + S,
         "tick": carry["tick"] + S,
     }
-    audio, mimi_state = decode_mimi_chunk(flow_params, mimi_params, mimi, latents.transpose(0, 1), mimi_state)
-    if emit_pcm16:
-        audio = to_pcm16(audio)
+    with trace.span("segment.mimi"):
+        audio, mimi_state = decode_mimi_chunk(flow_params, mimi_params, mimi, latents.transpose(0, 1), mimi_state)
+        if emit_pcm16:
+            audio = to_pcm16(audio)
     steps_target = torch.minimum(carry["eos_step"] + carry["frames_after_eos"] + 1, carry["max_gen"])
     all_done = torch.all(carry["step"] >= steps_target)
     return flow_state, mimi_state, carry, audio, emit.transpose(0, 1), all_done

@@ -26,6 +26,11 @@ batch's audio. The B=1 kernels stay off under a mesh, as in the JAX package.
 traces a block with torch.profiler, and `ModelState.size_bytes` sizes a
 state.
 
+With the span recorder on (utils/trace.py), the decode loop records
+`generate.prepare`, `generate.prefill`, `generate.segment` (its `S` and `B`
+attributes), `generate.fetch` and `generate.collect`, and a voice records
+`clone.read`, `clone.encode` and `voice.prefill`.
+
 Offline (no reachable checkpoint) the model starts from seeded random
 weights, the hash tokenizer and a synthetic voice prompt, like the JAX
 package.
@@ -81,6 +86,7 @@ from pocket_tts_tpu_torch.ops.sampling import sample_noise
 from pocket_tts_tpu_torch.parallel.collectives import all_gather_dp, barrier
 from pocket_tts_tpu_torch.parallel.mesh import Mesh, dp_range, gather_params, shard_batch_tree, shard_params
 from pocket_tts_tpu_torch.utils.assets import download_if_necessary
+from pocket_tts_tpu_torch.utils import trace
 from pocket_tts_tpu_torch.utils.safetensors import load_safetensors
 from pocket_tts_tpu_torch.utils.timing import size_of_pytree
 
@@ -408,11 +414,12 @@ class TTSModel:
     def _read_audio_prompt(self, path: Union[Path, str], truncate: bool = False) -> np.ndarray:
         """A voice file (local path or URI) -> float32 [1, T] mono at the
         model rate; truncate=True keeps the first 30 s of the file."""
-        audio, sr = audio_read(download_if_necessary(str(path)))
-        if truncate and audio.shape[-1] > int(_PROMPT_MAX_SECONDS * sr):
-            audio = audio[..., : int(_PROMPT_MAX_SECONDS * sr)]
-            logger.info("Audio truncated to %d seconds", _PROMPT_MAX_SECONDS)
-        return convert_audio(audio, sr, self.sample_rate, 1)
+        with trace.span("clone.read"):
+            audio, sr = audio_read(download_if_necessary(str(path)))
+            if truncate and audio.shape[-1] > int(_PROMPT_MAX_SECONDS * sr):
+                audio = audio[..., : int(_PROMPT_MAX_SECONDS * sr)]
+                logger.info("Audio truncated to %d seconds", _PROMPT_MAX_SECONDS)
+            return convert_audio(audio, sr, self.sample_rate, 1)
 
     @torch.no_grad()
     def _encode_audio(self, audio: Union[np.ndarray, torch.Tensor]) -> torch.Tensor:
@@ -421,9 +428,10 @@ class TTSModel:
         port encodes at the exact length: the JAX package pads to a
         power-of-2 frame bucket only to bound its compiles, and the encode
         chain is causal, so its first T' frames are these."""
-        x = torch.as_tensor(audio, dtype=torch.float32).to(self.device)
-        latents = self.mimi.encode_to_latent(self.params["mimi"], x).transpose(1, 2)
-        return self.flow_lm.project_speaker(self.params["flow_lm"], latents)
+        with trace.span("clone.encode"):
+            x = torch.as_tensor(audio, dtype=torch.float32).to(self.device)
+            latents = self.mimi.encode_to_latent(self.params["mimi"], x).transpose(1, 2)
+            return self.flow_lm.project_speaker(self.params["flow_lm"], latents)
 
     def _cached_get_state_for_audio_prompt(self, audio_conditioning: Union[Path, str],
                                            truncate: bool = False) -> ModelState:
@@ -438,8 +446,8 @@ class TTSModel:
     def _state_from_prompt(self, prompt: torch.Tensor) -> ModelState:
         """Prefill a fresh KV cache with conditioning embeddings [B, T, dim]."""
         B, T, _ = prompt.shape
-        state = self.flow_lm.init_state(B, _bucket(T), dtype=self.flow_state_dtype, device=self.device)
-        with torch.no_grad():
+        with trace.span("voice.prefill"), torch.no_grad():
+            state = self.flow_lm.init_state(B, _bucket(T), dtype=self.flow_state_dtype, device=self.device)
             state = self.flow_lm.prefill(self.params["flow_lm"], state, prompt.float().to(self.device), [T] * B)
         voice = ModelState(state, [T] * B, written=T)
         voice.key = next(self._voice_keys)
@@ -527,12 +535,14 @@ class TTSModel:
         for frames, emit in self._generate_batch_frames(batched, list(texts), fae, True, warmup_frames, True):
             for b in np.flatnonzero(emit):
                 per_stream[b].append(frames[b])
-        return [
-            self._postprocess_audio_start(
-                np.concatenate(chunks, axis=0) if chunks else np.zeros(0, dtype=np.float32), trim_start_ms, fade_in_ms
-            )
-            for chunks in per_stream
-        ]
+        with trace.span("generate.collect"):
+            return [
+                self._postprocess_audio_start(
+                    np.concatenate(chunks, axis=0) if chunks else np.zeros(0, dtype=np.float32), trim_start_ms,
+                    fade_in_ms,
+                )
+                for chunks in per_stream
+            ]
 
     def _warm_mimi_state(self, batch: int, max_chunk: int, warmup_frames: int) -> dict:
         """Mimi decode state of `batch` streams after `warmup_frames`
@@ -563,46 +573,50 @@ class TTSModel:
         sharded = (lo, hi) != (0, B)
         if sharded and not (copy_state and bulk):
             raise ValueError("a batch split over dp decodes in bulk from a copy of its state (generate_audio_batch)")
-        token_lists = [self.conditioner.prepare(t).tokens[0].tolist() for t in texts]
-        n_tok = [len(t) for t in token_lists]
-        max_gen = [
-            estimate_max_gen_len(n, self.config.mimi.frame_rate, self._TOKENS_PER_SECOND_ESTIMATE,
-                                 self._GEN_SECONDS_PADDING)
-            for n in n_tok
-        ]
-        t_pad = _bucket(max(n_tok), 32)
-        sched = _bulk_schedule(max(max_gen)) if bulk else _stream_schedule(max(max_gen), DEFAULT_SEGMENT_FRAMES)
-        budget = sum(sched)
+        with trace.span("generate.prepare"):
+            token_lists = [self.conditioner.prepare(t).tokens[0].tolist() for t in texts]
+            n_tok = [len(t) for t in token_lists]
+            max_gen = [
+                estimate_max_gen_len(n, self.config.mimi.frame_rate, self._TOKENS_PER_SECOND_ESTIMATE,
+                                     self._GEN_SECONDS_PADDING)
+                for n in n_tok
+            ]
+            t_pad = _bucket(max(n_tok), 32)
+            sched = _bulk_schedule(max(max_gen)) if bulk else _stream_schedule(max(max_gen), DEFAULT_SEGMENT_FRAMES)
+            budget = sum(sched)
 
-        # deepcopy keeps the layers' one shared slot_pos tensor shared.
-        tree = copy.deepcopy(model_state.tree) if copy_state else model_state.tree
-        written = model_state.written
-        capacity_now = self.flow_lm.state_capacity(tree)
-        required = written + t_pad + budget
-        if _bucket(required) > capacity_now:
-            # Compact dead slots out before growing to a new bucket.
-            compact_written = -(-(max(model_state.pos) + 1) // 8) * 8
-            required_after = compact_written + t_pad + budget
-            if compact_written < written and _bucket(required_after) < _bucket(required):
-                tree = self.flow_lm.compact_state(tree, compact_written)
-                written, required = compact_written, required_after
-        tree = self.flow_lm.expand_state(tree, _bucket(required))
-        capacity = self.flow_lm.state_capacity(tree)
-        if not copy_state:
-            model_state.tree, model_state.written = tree, written
-        if sharded:
-            tree = shard_batch_tree(self.mesh, tree, B)
+            # deepcopy keeps the layers' one shared slot_pos tensor shared.
+            tree = copy.deepcopy(model_state.tree) if copy_state else model_state.tree
+            written = model_state.written
+            capacity_now = self.flow_lm.state_capacity(tree)
+            required = written + t_pad + budget
+            if _bucket(required) > capacity_now:
+                # Compact dead slots out before growing to a new bucket.
+                compact_written = -(-(max(model_state.pos) + 1) // 8) * 8
+                required_after = compact_written + t_pad + budget
+                if compact_written < written and _bucket(required_after) < _bucket(required):
+                    tree = self.flow_lm.compact_state(tree, compact_written)
+                    written, required = compact_written, required_after
+            tree = self.flow_lm.expand_state(tree, _bucket(required))
+            capacity = self.flow_lm.state_capacity(tree)
+            if not copy_state:
+                model_state.tree, model_state.written = tree, written
+            if sharded:
+                tree = shard_batch_tree(self.mesh, tree, B)
 
-        max_chunk = max(sched, default=1) if bulk else _stream_steady(DEFAULT_SEGMENT_FRAMES)
-        mimi_state = self._warm_mimi_state(hi - lo, max_chunk, warmup_frames)
+            max_chunk = max(sched, default=1) if bulk else _stream_steady(DEFAULT_SEGMENT_FRAMES)
+            mimi_state = self._warm_mimi_state(hi - lo, max_chunk, warmup_frames)
 
         t0 = time.monotonic()
-        tok = torch.zeros(B, t_pad, dtype=torch.long)
-        for b, toks in enumerate(token_lists):
-            tok[b, : len(toks)] = torch.tensor(toks, dtype=torch.long)
-        fl = self.params["flow_lm"]
-        tree = self.flow_lm.prefill(fl, tree, self.flow_lm.embed_text(fl, tok[lo:hi].to(self.device)), n_tok[lo:hi])
-        carry = initial_carry(hi - lo, self.flow_lm.ldim, list(frames_after_eos)[lo:hi], max_gen[lo:hi], self.device)
+        with trace.span("generate.prefill", pad=t_pad):
+            tok = torch.zeros(B, t_pad, dtype=torch.long)
+            for b, toks in enumerate(token_lists):
+                tok[b, : len(toks)] = torch.tensor(toks, dtype=torch.long)
+            fl = self.params["flow_lm"]
+            tree = self.flow_lm.prefill(fl, tree, self.flow_lm.embed_text(fl, tok[lo:hi].to(self.device)),
+                                        n_tok[lo:hi])
+            carry = initial_carry(hi - lo, self.flow_lm.ldim, list(frames_after_eos)[lo:hi], max_gen[lo:hi],
+                                  self.device)
 
         # Read-limit buckets (B > 1): each segment's attention reads only
         # the 128-bucketed front of the cache that holds written rows.
@@ -618,23 +632,29 @@ class TTSModel:
                 read_limit = r if r < capacity else None
             read_limits.append(read_limit)
             written_host += seg
-            noise = sample_noise(self._gen, (seg, B, self.flow_lm.ldim), self.temp, self.noise_clamp,
-                                 self.device)[:, lo:hi]
-            tree, mimi_state, carry, audio, emit, done = run_segment(
-                self.flow_lm, self.mimi, self.params, tree, mimi_state, carry, noise,
-                self.lsd_decode_steps, self.eos_threshold, emit_pcm16=self.transfer_pcm16, read_limit=read_limit,
-            )
+            with trace.span("generate.segment", S=seg, B=hi - lo):
+                noise = sample_noise(self._gen, (seg, B, self.flow_lm.ldim), self.temp, self.noise_clamp,
+                                     self.device)[:, lo:hi]
+                tree, mimi_state, carry, audio, emit, done = run_segment(
+                    self.flow_lm, self.mimi, self.params, tree, mimi_state, carry, noise,
+                    self.lsd_decode_steps, self.eos_threshold, emit_pcm16=self.transfer_pcm16, read_limit=read_limit,
+                )
             dispatched += seg
             if bulk:
                 pending.append((audio, emit))
                 continue
-            for frames, emit_s in self._emitted(*self._whole_batch(audio, emit, sharded)):
+            # The span closes before the frames go out: none stays open across a yield.
+            with trace.span("generate.fetch"):
+                host = self._whole_batch(audio, emit, sharded)
+            for frames, emit_s in self._emitted(*host):
                 emitted_samples += int(emit_s.sum()) * frames.shape[-1]
                 yield frames, emit_s
             if bool(done):
                 break
         for audio, emit in pending:
-            for frames, emit_s in self._emitted(*self._whole_batch(audio, emit, sharded)):
+            with trace.span("generate.fetch"):
+                host = self._whole_batch(audio, emit, sharded)
+            for frames, emit_s in self._emitted(*host):
                 emitted_samples += int(emit_s.sum()) * frames.shape[-1]
                 yield frames, emit_s
         self.last_generation = {"batch": B, "frames": dispatched, "capacity": capacity, "read_limits": read_limits}

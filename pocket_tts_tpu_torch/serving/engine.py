@@ -51,6 +51,12 @@ decode attention (slots > 1, or any slot on a mesh) goes through
 ops/batch_attention's CUDA kernel, and one slot off a mesh decodes through
 the B=1 kernels.
 
+With the span recorder on (utils/trace.py), each tick of run() or step()
+is an `engine.tick` span holding `engine.admit` (planning), `engine.apply`
+(enqueuing the plan, one `engine.op.<op>` child per item), `engine.fetch`
+(waiting on the device for a segment's outputs) and `engine.deliver`;
+`RequestHandle.admit_time` dates each request's admission.
+
 Left out on purpose, as compile or relay artifacts of the JAX engine: the
 startup precompiles, padding of groups to compiled sizes, and the host-side
 PRNG split (the engine owns a torch.Generator; the flow noise of a segment
@@ -79,9 +85,15 @@ from pocket_tts_tpu_torch.ops.batch_attention import MAX_READ_ROWS
 from pocket_tts_tpu_torch.ops.sampling import sample_noise
 from pocket_tts_tpu_torch.parallel.collectives import all_gather_dp, all_gather_dp_tensor, broadcast_from_rank0
 from pocket_tts_tpu_torch.parallel.mesh import dp_range
+from pocket_tts_tpu_torch.utils import trace
 from pocket_tts_tpu_torch.utils.transfer import host_to_device
 
 logger = logging.getLogger(__name__)
+
+# The span of each plan item, named once: a recorder that is off then costs
+# a dict read per item.
+_OP_SPANS = {op: f"engine.op.{op}" for op in
+             ("voice", "grow", "compact", "park", "swap", "resume", "admit", "prefill", "cancel", "segment")}
 
 _EOS_NEVER = 2**30
 _NOISE_SEED = 1234  # the JAX engine's PRNGKey
@@ -111,6 +123,10 @@ class RequestHandle:
     # submit() time; with record_frame_times=True, frame_times[0] -
     # submit_time is this stream's time to first audio under load.
     submit_time: float = 0.0
+    # When its first chunk was planned into a slot (time.monotonic(), the
+    # clock of submit_time); admit_time - submit_time is its queue wait.
+    # None until then.
+    admit_time: Optional[float] = None
     # Arrival time of every delivered frame (record_frame_times=True); feed
     # to TTSEngine.frame_lateness() to check playback deadlines.
     frame_times: list = field(default_factory=list)
@@ -565,7 +581,10 @@ class TTSEngine:
             self._written = max(self._written, voice_state.written)
             self._ops.append(("admit", key, [it[0] for it in group], [it[3] for it in group],
                               [it[4] for it in group], voice_state.pos[0], self._written))
+            now = time.monotonic()
             for b, handle, voice, fae, max_gen, tokens in group:
+                if handle.admit_time is None:
+                    handle.admit_time = now
                 self._pos[b] = voice.pos[0]
                 slot = self._slots[b]
                 slot.active, slot.handle, slot.frames_left = True, handle, max_gen
@@ -918,51 +937,52 @@ class TTSEngine:
         A cancelled stream's `max_gen = 0` write goes into the next plan."""
         rows, fetch_rows = dispatched
         audio_np, emit_np, counters = self._fetch()
-        eos_step, step, fae_np, max_gen_np = counters
-        for i, (b, handle, epoch) in enumerate(rows):
-            r = i if fetch_rows is not None else b
-            if epoch in self._retired_epochs:
-                # A stale segment of a retired admission: after a
-                # cancellation it may carry frames that must not land after
-                # the terminator.
-                continue
-            if handle._cancelled.is_set():
-                self._retire_epoch(epoch)
-                self._finish(handle)
-                slot = self._slots[b]
-                if slot.epoch == epoch:
-                    slot.active = False
-                    slot.handle = None
-                    self._ops.append(("cancel", [b]))  # the still-running decode emits nothing
-                continue
-            now = time.monotonic()
-            for s in range(emit_np.shape[1]):
-                if emit_np[r, s]:
-                    handle._queue.put(audio_np[r, s])
-                    handle._frames_delivered += 1
-                    if handle._first_frame_time is None:
-                        handle._first_frame_time = now
-                    if self.record_frame_times:
-                        handle.frame_times.append(now)
-            # Done when the reference loop would have exited
-            # (step >= eos_step + frames_after_eos, capped by max_gen).
-            if int(step[b]) >= min(int(eos_step[b]) + int(fae_np[b]), int(max_gen_np[b])):
-                self._retire_epoch(epoch)
-                if epoch in self._parked_by_epoch:
-                    # Completed in the segment in flight when it was parked:
-                    # its parked row is dead.
-                    self._drop_parked(self._parked_by_epoch[epoch])
-                if handle._chunks:
-                    fae, max_gen, tokens = handle._chunks.pop(0)
-                    self._pending.put((handle, handle._voice, fae, max_gen, tokens))
-                else:
-                    handle._queue.put(None)
-                    handle._done.set()
-                    self._record_completion()
-                slot = self._slots[b]
-                if slot.epoch == epoch:  # not yet re-admitted
-                    slot.active = False
-                    slot.handle = None
+        with trace.span("engine.deliver"):
+            eos_step, step, fae_np, max_gen_np = counters
+            for i, (b, handle, epoch) in enumerate(rows):
+                r = i if fetch_rows is not None else b
+                if epoch in self._retired_epochs:
+                    # A stale segment of a retired admission: after a
+                    # cancellation it may carry frames that must not land after
+                    # the terminator.
+                    continue
+                if handle._cancelled.is_set():
+                    self._retire_epoch(epoch)
+                    self._finish(handle)
+                    slot = self._slots[b]
+                    if slot.epoch == epoch:
+                        slot.active = False
+                        slot.handle = None
+                        self._ops.append(("cancel", [b]))  # the still-running decode emits nothing
+                    continue
+                now = time.monotonic()
+                for s in range(emit_np.shape[1]):
+                    if emit_np[r, s]:
+                        handle._queue.put(audio_np[r, s])
+                        handle._frames_delivered += 1
+                        if handle._first_frame_time is None:
+                            handle._first_frame_time = now
+                        if self.record_frame_times:
+                            handle.frame_times.append(now)
+                # Done when the reference loop would have exited
+                # (step >= eos_step + frames_after_eos, capped by max_gen).
+                if int(step[b]) >= min(int(eos_step[b]) + int(fae_np[b]), int(max_gen_np[b])):
+                    self._retire_epoch(epoch)
+                    if epoch in self._parked_by_epoch:
+                        # Completed in the segment in flight when it was parked:
+                        # its parked row is dead.
+                        self._drop_parked(self._parked_by_epoch[epoch])
+                    if handle._chunks:
+                        fae, max_gen, tokens = handle._chunks.pop(0)
+                        self._pending.put((handle, handle._voice, fae, max_gen, tokens))
+                    else:
+                        handle._queue.put(None)
+                        handle._done.set()
+                        self._record_completion()
+                    slot = self._slots[b]
+                    if slot.epoch == epoch:  # not yet re-admitted
+                        slot.active = False
+                        slot.handle = None
         return sum(s.active for s in self._slots)
 
     def _flush(self, deliveries: int = 0, end: bool = False) -> None:
@@ -993,12 +1013,14 @@ class TTSEngine:
         if not self._leader:
             self._follow()
             return 0
-        self._admit_pending()
-        dispatched = self._dispatch_segment() if any(s.active for s in self._slots) else None
-        self._flush(deliveries=int(dispatched is not None))
-        if dispatched is None:
-            return 0
-        return self._deliver(dispatched)
+        with trace.span("engine.tick"):
+            with trace.span("engine.admit"):
+                self._admit_pending()
+            dispatched = self._dispatch_segment() if any(s.active for s in self._slots) else None
+            self._flush(deliveries=int(dispatched is not None))
+            if dispatched is None:
+                return 0
+            return self._deliver(dispatched)
 
     @torch.no_grad()
     def run(self, stop_when_idle: bool = True, max_ticks: Optional[int] = None) -> None:
@@ -1039,19 +1061,28 @@ class TTSEngine:
                 if len(self.tick_walls) > 4096:
                     del self.tick_walls[:2048]
             tick_t0 = None if fully_idle else now
-            self._admit_pending(block_seconds=0.05 if fully_idle else 0.0)
-            short_tick = self._just_admitted  # consumed by _dispatch_segment
-            any_active = any(s.active for s in self._slots)
-            dispatched = self._dispatch_segment() if any_active else None
-            deliveries = [] if in_flight is None else [in_flight]
-            if dispatched is not None and short_tick:
-                # The tick after an admission carries the new streams' first
-                # frames: deliver it now rather than one tick later.
-                deliveries.append(dispatched)
-                dispatched = None
-            self._flush(len(deliveries))
-            for d in deliveries:
-                self._deliver(d)
+            # A tick with work is the interval tick_walls times; an idle
+            # iteration (waiting for a request) is no tick.
+            with (trace.OFF if fully_idle else trace.span("engine.tick")) as tick:
+                with trace.span("engine.admit"):
+                    self._admit_pending(block_seconds=0.05 if fully_idle else 0.0)
+                short_tick = self._just_admitted  # consumed by _dispatch_segment
+                any_active = any(s.active for s in self._slots)
+                dispatched = self._dispatch_segment() if any_active else None
+                deliveries = [] if in_flight is None else [in_flight]
+                if dispatched is not None and short_tick:
+                    # The tick after an admission carries the new streams' first
+                    # frames: deliver it now rather than one tick later.
+                    deliveries.append(dispatched)
+                    dispatched = None
+                if tick is not trace.OFF:
+                    tick.set(slots=sum(s.active for s in self._slots),
+                             frames=self._ops[-1][1] if any_active else 0,  # the segment: the plan's last item
+                             admitted=sum(len(op[2]) for op in self._ops if op[0] == "admit"),
+                             delivered=len(deliveries))
+                self._flush(len(deliveries))
+                for d in deliveries:
+                    self._deliver(d)
             in_flight = dispatched
             ticks += any_active
             if max_ticks is not None and ticks >= max_ticks:
@@ -1115,8 +1146,10 @@ class TTSEngine:
     # holds. The write index is batch-common and moves on every rank.
 
     def _apply(self, ops: list) -> None:
-        for op, *args in ops:
-            getattr(self, f"_op_{op}")(*args)
+        with trace.span("engine.apply"):
+            for op, *args in ops:
+                with trace.span(_OP_SPANS[op]):
+                    getattr(self, f"_op_{op}")(*args)
 
     def _held(self, slots: list[int]) -> tuple[list[int], list[int]]:
         """(positions in `slots`, local rows) of the slots this rank holds."""
@@ -1299,11 +1332,12 @@ class TTSEngine:
         """The oldest undelivered segment's audio, emit flags and counters on
         the host; on a dp-sharded engine those of every slot, gathered over
         dp."""
-        host, event = self._outputs.popleft()
-        if event is not None:
-            event.synchronize()
-        arrays = [t.numpy() for t in host]
-        if self._sharded:
-            parts = all_gather_dp(self.mesh, arrays)
-            arrays = [np.concatenate([p[i] for p in parts], axis=1 if i == 2 else 0) for i in range(3)]
-        return arrays
+        with trace.span("engine.fetch"):
+            host, event = self._outputs.popleft()
+            if event is not None:
+                event.synchronize()
+            arrays = [t.numpy() for t in host]
+            if self._sharded:
+                parts = all_gather_dp(self.mesh, arrays)
+                arrays = [np.concatenate([p[i] for p in parts], axis=1 if i == 2 else 0) for i in range(3)]
+            return arrays
