@@ -10,9 +10,11 @@ pocket_tts_mlx/models/flow_lm.py:31-142).
 
 State is {"transformer": {"layers": [{"k", "v", "slot_pos"}], "widx": int},
 "pos": [int per stream]}: the slot-major caches and the one `slot_pos`
-tensor all layers share live on the device and update in place; the write
-index and the stream positions are host integers. An int8 cache adds
-per-layer `k_scale` / `v_scale` [B, C], moved like `slot_pos`. Int8 models
+tensor all layers share live on the device and update in place (compaction
+included); the write index and the stream positions are host integers (a
+captured batch step, models/step_graph.py, reads a device copy of them). An
+int8 cache adds per-layer `k_scale` / `v_scale` [B, C], moved like
+`slot_pos`. Int8 models
 carry packed kernel weights under params["fused_backbone"] (and
 "fused_flow"), and B=1 decode steps over a bf16 cache of a capacity the
 kernel takes then run ops/fused_backbone.fused_backbone_step; batch steps
@@ -165,20 +167,33 @@ class FlowLMModel:
             )
             tstate["widx"] += 1
         else:
-            bos = params["bos_emb"][None, :].to(latent.dtype)
-            if isinstance(is_bos, torch.Tensor):
-                seq = torch.where(is_bos.to(latent.device)[:, None], bos, latent)
-            else:
-                seq = bos.expand(B, -1) if is_bos else latent
-            x = linear(seq[:, None, :], params["input_linear"]["weight"])
             positions = host_to_device(torch.tensor(state["pos"], dtype=torch.int32), latent.device)[:, None]
-            h = self.transformer(params["transformer"], x, tstate, positions, read_limit=read_limit)
-            h = layer_norm(h, params["out_norm"]["weight"], params["out_norm"]["bias"], eps=1e-5).float()[:, -1]
-            eos_logits = linear(h, params["out_eos"]["weight"], params["out_eos"]["bias"])[:, 0]
+            h, eos_logits = self.backbone_step(params, tstate, latent, is_bos, positions, read_limit)
         state["pos"] = [p + 1 for p in state["pos"]]
+        return state, self.flow_step(params, h, noise, lsd_decode_steps), eos_logits > eos_threshold
+
+    def backbone_step(self, params: Params, tstate: dict, latent: torch.Tensor, is_bos, positions: torch.Tensor,
+                      read_limit: Optional[int] = None):
+        """The plain (non-kernel) backbone of one step at positions [B, 1]
+        -> (h [B, d_model] float32, EOS logits [B]). Appends at
+        tstate["widx"] (a host int, or a one-element device tensor) and
+        advances it."""
+        B = latent.shape[0]
+        bos = params["bos_emb"][None, :].to(latent.dtype)
+        if isinstance(is_bos, torch.Tensor):
+            seq = torch.where(is_bos.to(latent.device)[:, None], bos, latent)
+        else:
+            seq = bos.expand(B, -1) if is_bos else latent
+        x = linear(seq[:, None, :], params["input_linear"]["weight"])
+        h = self.transformer(params["transformer"], x, tstate, positions, read_limit=read_limit)
+        h = layer_norm(h, params["out_norm"]["weight"], params["out_norm"]["bias"], eps=1e-5).float()[:, -1]
+        return h, linear(h, params["out_eos"]["weight"], params["out_eos"]["bias"])[:, 0]
+
+    def flow_step(self, params: Params, h: torch.Tensor, noise: torch.Tensor, lsd_decode_steps: int) -> torch.Tensor:
+        """The next latent [B, ldim]: the flow head integrated from `noise`
+        under the backbone's output h."""
         flow, fparams = self.flow_net, params["flow_net"]
-        next_latent = lsd_decode(lambda s, t, x: flow(fparams, h, s, t, x), noise, lsd_decode_steps)
-        return state, next_latent, eos_logits > eos_threshold
+        return lsd_decode(lambda s, t, x: flow(fparams, h, s, t, x), noise, lsd_decode_steps)
 
     def fused_step_ok(self, params: Params, state: State, B: int) -> bool:
         """The JAX package's dispatch rule for the per-frame kernel: no mesh
@@ -221,16 +236,21 @@ class FlowLMModel:
 
     def compact_state(self, state: State, new_written: int) -> State:
         """Gather each stream's valid cache rows (with their int8 scales) to
-        the front in position order; `new_written` must bound max(valid
-        positions) + 1."""
-        sp = state["transformer"]["layers"][0]["slot_pos"]
+        the front in position order, in place: each leaf is gathered into one
+        scratch buffer and copied back, so it keeps its storage (a captured
+        decode step stays bound to it). `new_written` must bound max(valid
+        positions) + 1; it becomes the write index."""
+        layers = state["transformer"]["layers"]
+        sp = layers[0]["slot_pos"]
         order = torch.argsort(torch.where(sp >= 0, sp, torch.full_like(sp, 2**30)), dim=1, stable=True)
-
-        def g(_, a):
+        leaves = [leaf for layer in layers for name, leaf in layer.items() if name != "slot_pos"] + [sp]
+        scratch = torch.empty(max(a.numel() * a.element_size() for a in leaves), dtype=torch.uint8, device=sp.device)
+        for a in leaves:
             idx = order.reshape(order.shape + (1,) * (a.ndim - 2)).expand(a.shape)
-            return torch.gather(a, 1, idx)
-
-        return self._map_rows(state, g, int(new_written))
+            gathered = scratch[: a.numel() * a.element_size()].view(a.dtype).view(a.shape)
+            a.copy_(torch.gather(a, 1, idx, out=gathered))
+        state["transformer"]["widx"] = int(new_written)
+        return state
 
     def state_capacity(self, state: State) -> int:
         return state["transformer"]["layers"][0]["k"].shape[1]

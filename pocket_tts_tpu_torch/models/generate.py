@@ -7,8 +7,11 @@ the model carries packed int8 kernel weights, the cache is not int8 and
 S % 8 == 0; otherwise it loops over frames with flow_lm.decode_step, whose
 B=1 int8 steps run the per-frame kernel (ops/fused_backbone.fused_backbone_step)
 and whose batch steps attend through ops/batch_attention.batch_decode_attention.
+Given the model's StepGraphs, batch steps on the card replay a captured CUDA
+graph of that step instead (models/step_graph.py).
 With the span recorder on (utils/trace.py), `segment.flow` covers the FlowLM
-frames and `segment.mimi` the vocode.
+frames (its `replayed` attribute: the frames that replayed a captured step)
+and `segment.mimi` the vocode.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import torch
 
 from pocket_tts_tpu_torch.models.flow_lm import FlowLMModel
 from pocket_tts_tpu_torch.models.mimi import MimiModel
+from pocket_tts_tpu_torch.models.step_graph import StepGraphs
 from pocket_tts_tpu_torch.ops.fused_segment import fused_segment_decode
 from pocket_tts_tpu_torch.utils import trace
 
@@ -58,6 +62,16 @@ def segment_kernel_ok(flow_lm: FlowLMModel, flow_params, flow_state, lsd_decode_
             and "fused_flow" in flow_params and S % 8 == 0)
 
 
+def step_graph_ok(flow_lm: FlowLMModel, flow_params, flow_state, lsd_decode_steps: int, S: int) -> bool:
+    """Whether a segment's frames replay a captured step
+    (models/step_graph.py): B > 1 on a CUDA device off a mesh, where the
+    frame loop would otherwise run the plain step (no B=1 kernel)."""
+    B = len(flow_state["pos"])
+    return (B > 1 and flow_state["transformer"]["layers"][0]["k"].is_cuda and flow_lm.mesh is None
+            and not flow_lm.fused_step_ok(flow_params, flow_state, B)
+            and not segment_kernel_ok(flow_lm, flow_params, flow_state, lsd_decode_steps, S))
+
+
 def run_segment(
     flow_lm: FlowLMModel,
     mimi: MimiModel,
@@ -70,16 +84,19 @@ def run_segment(
     eos_threshold: float,
     emit_pcm16: bool = False,
     read_limit: int | None = None,
+    step_graphs: StepGraphs | None = None,
 ):
     """Decode one segment -> (flow_state, mimi_state, carry, audio [B, S,
     frame], emit [B, S] bool, all_done bool tensor). Caches update in place.
     read_limit bounds the cache rows the per-frame attention reads; the
     caller guarantees widx + S <= read_limit. The carry's `is_bos` and
     `step` are per stream ([B] tensors); the B=1 kernels take the BOS flag
-    as a host bool, one device read per segment."""
+    as a host bool, one device read per segment. `step_graphs` (the
+    model's) replays batch steps on the card where step_graph_ok allows."""
     flow_params, mimi_params = params["flow_lm"], params["mimi"]
     S, B, _ = noise_seq.shape
-    with trace.span("segment.flow"):
+    replayed = 0
+    with trace.span("segment.flow") as flow_span:
         if segment_kernel_ok(flow_lm, flow_params, flow_state, lsd_decode_steps, S):
             tstate = flow_state["transformer"]
             layers = tstate["layers"]
@@ -92,7 +109,14 @@ def run_segment(
             flow_state["pos"] = [p + S for p in flow_state["pos"]]
             latents = lat[:, None, :]  # [S, 1, ldim]
             eos_flags = (eos_logits > eos_threshold)[:, None]  # [S, 1]
+        elif step_graphs is not None and step_graph_ok(flow_lm, flow_params, flow_state, lsd_decode_steps, S):
+            latents, eos_flags, replayed = step_graphs.decode(
+                flow_lm, flow_params, flow_state, carry["latent"], carry["is_bos"], noise_seq, lsd_decode_steps,
+                eos_threshold, read_limit,
+            )
         else:
+            if step_graphs is not None and B > 1 and noise_seq.is_cuda:
+                step_graphs.eager_steps += S
             latent, is_bos = carry["latent"], carry["is_bos"]
             lat_list, eos_list = [], []
             for i in range(S):
@@ -104,6 +128,8 @@ def run_segment(
                 lat_list.append(latent)
                 eos_list.append(is_eos)
             latents, eos_flags = torch.stack(lat_list), torch.stack(eos_list)
+        if flow_span is not trace.OFF:
+            flow_span.set(replayed=replayed)
 
     # Vectorized EOS bookkeeping: the running eos_step at frame i (after
     # folding frame i's own flag) is the prefix-min of flagged step indices.

@@ -13,6 +13,10 @@ and B streams alike (`_generate_batch_frames`); frames decode in segments
 (models/generate.run_segment), and the host reads audio and EOS once per
 streamed segment and once per bulk generation. Batch segments read only the
 128-bucketed front of the cache that holds written rows (`read_limit`).
+A batch (B > 1) decodes in a state that the model keeps per (B, capacity,
+KV dtype), filled from the voice at each call, and on the card its steps
+replay captured CUDA graphs (`step_graphs`, models/step_graph.py), which
+stay bound to that state's buffers.
 
 On a mesh (`load_model(mesh=...)` or `dp=` / `tp=`; parallel/) every rank
 holds its tp shard of the weights (Megatron feed-forward and attention
@@ -38,9 +42,11 @@ package.
 
 from __future__ import annotations
 
+import collections
 import copy
 import itertools
 import logging
+import threading
 import time
 import weakref
 from pathlib import Path
@@ -66,6 +72,7 @@ from pocket_tts_tpu_torch.default_parameters import (
 from pocket_tts_tpu_torch.models.flow_lm import FlowLMModel
 from pocket_tts_tpu_torch.models.generate import decode_mimi_chunk, initial_carry, run_segment
 from pocket_tts_tpu_torch.models.mimi import MimiModel
+from pocket_tts_tpu_torch.models.step_graph import StepGraphs
 from pocket_tts_tpu_torch.models.text import (
     estimate_max_gen_len,
     make_tokenizer,
@@ -93,6 +100,7 @@ from pocket_tts_tpu_torch.utils.timing import size_of_pytree
 logger = logging.getLogger(__name__)
 
 _BULK_SEGMENT_FRAMES = 64
+_KEPT_BATCH_STATES = 2  # batch decode states a model keeps, most recent first
 
 _VOICE_NAMES = ["alba", "marius", "javert", "jean", "fantine", "cosette", "eponine", "azelma"]
 PREDEFINED_VOICES = {
@@ -229,6 +237,12 @@ class TTSModel:
         # Schedule of the last generation: batch size, decoded frames, cache
         # capacity and each segment's read limit (None: the whole capacity).
         self.last_generation: dict = {}
+        # Captured batch decode steps (the batch path's and the engines'),
+        # and the batch path's decode states they are bound to, by (B,
+        # capacity, KV dtype), each used by one generation at a time.
+        self.step_graphs = StepGraphs()
+        self._batch_states: "collections.OrderedDict[tuple, dict]" = collections.OrderedDict()
+        self._batch_lock = threading.Lock()
 
     @property
     def flow_state_dtype(self):
@@ -557,6 +571,45 @@ class TTSModel:
             self._warm_mimi[key] = state
         return copy.deepcopy(self._warm_mimi[key])
 
+    def _batch_state(self, src: dict, capacity: int) -> dict:
+        """A decode state of len(src["pos"]) streams at `capacity` rows and
+        src's KV dtype, filled from src: its rows, then empty rows (K, V and
+        scales 0, slot_pos -1), its write index and positions; the bytes of a
+        deepcopy grown by expand_state. Its buffers are the kept state of
+        that (B, capacity, KV dtype), checked out until _keep_batch_state,
+        or new ones when none is kept (or another generation holds it)."""
+        src_layers = src["transformer"]["layers"]
+        key = (len(src["pos"]), capacity, src_layers[0]["k"].dtype)
+        with self._batch_lock:
+            tree = self._batch_states.pop(key, None)
+        if tree is None:
+            tree = self.flow_lm.init_state(key[0], capacity, dtype=key[2], device=self.device)
+        c = self.flow_lm.state_capacity(src)
+        for i, (dst, src_layer) in enumerate(zip(tree["transformer"]["layers"], src_layers)):
+            for name, leaf in dst.items():
+                if name == "slot_pos" and i:
+                    continue  # one tensor shared by every layer
+                leaf[:, :c].copy_(src_layer[name])
+                leaf[:, c:].fill_(-1 if name == "slot_pos" else 0)
+        tree["transformer"]["widx"] = src["transformer"]["widx"]
+        tree["pos"] = list(src["pos"])
+        return tree
+
+    def _keep_batch_state(self, tree: dict) -> None:
+        """Keep a state from _batch_state for the next generation of its
+        sizes: the _KEPT_BATCH_STATES latest, the steps captured on any other
+        forgotten."""
+        k = tree["transformer"]["layers"][0]["k"]
+        key = (k.shape[0], k.shape[1], k.dtype)
+        with self._batch_lock:
+            dropped = [self._batch_states.pop(key, None)]  # a concurrent generation's
+            self._batch_states[key] = tree
+            while len(self._batch_states) > _KEPT_BATCH_STATES:
+                dropped.append(self._batch_states.popitem(last=False)[1])
+        for old in dropped:
+            if old is not None:
+                self.step_graphs.forget(old["transformer"])
+
     @torch.no_grad()
     def _generate_batch_frames(self, model_state: ModelState, texts: Sequence[str], frames_after_eos: Sequence[int],
                                copy_state: bool, warmup_frames: int, bulk: bool):
@@ -573,6 +626,10 @@ class TTSModel:
         sharded = (lo, hi) != (0, B)
         if sharded and not (copy_state and bulk):
             raise ValueError("a batch split over dp decodes in bulk from a copy of its state (generate_audio_batch)")
+        # A bulk batch off a mesh decodes in a state the model keeps (its
+        # captured steps stay bound to it): checked out here, kept again once
+        # its device work is queued.
+        kept = copy_state and bulk and B > 1 and self.mesh is None
         with trace.span("generate.prepare"):
             token_lists = [self.conditioner.prepare(t).tokens[0].tolist() for t in texts]
             n_tok = [len(t) for t in token_lists]
@@ -585,20 +642,26 @@ class TTSModel:
             sched = _bulk_schedule(max(max_gen)) if bulk else _stream_schedule(max(max_gen), DEFAULT_SEGMENT_FRAMES)
             budget = sum(sched)
 
-            # deepcopy keeps the layers' one shared slot_pos tensor shared.
-            tree = copy.deepcopy(model_state.tree) if copy_state else model_state.tree
             written = model_state.written
-            capacity_now = self.flow_lm.state_capacity(tree)
+            capacity_now = self.flow_lm.state_capacity(model_state.tree)
             required = written + t_pad + budget
+            compact_to = None
             if _bucket(required) > capacity_now:
                 # Compact dead slots out before growing to a new bucket.
                 compact_written = -(-(max(model_state.pos) + 1) // 8) * 8
                 required_after = compact_written + t_pad + budget
                 if compact_written < written and _bucket(required_after) < _bucket(required):
-                    tree = self.flow_lm.compact_state(tree, compact_written)
+                    compact_to = compact_written
                     written, required = compact_written, required_after
-            tree = self.flow_lm.expand_state(tree, _bucket(required))
-            capacity = self.flow_lm.state_capacity(tree)
+            capacity = max(capacity_now, _bucket(required))
+            if kept:
+                tree = self._batch_state(model_state.tree, capacity)
+            else:
+                # deepcopy keeps the layers' one shared slot_pos tensor shared.
+                tree = copy.deepcopy(model_state.tree) if copy_state else model_state.tree
+                tree = self.flow_lm.expand_state(tree, capacity)
+            if compact_to is not None:  # the grown rows are invalid and sort last: as compacting first
+                tree = self.flow_lm.compact_state(tree, compact_to)
             if not copy_state:
                 model_state.tree, model_state.written = tree, written
             if sharded:
@@ -637,7 +700,8 @@ class TTSModel:
                                      self.device)[:, lo:hi]
                 tree, mimi_state, carry, audio, emit, done = run_segment(
                     self.flow_lm, self.mimi, self.params, tree, mimi_state, carry, noise,
-                    self.lsd_decode_steps, self.eos_threshold, emit_pcm16=self.transfer_pcm16, read_limit=read_limit,
+                    self.lsd_decode_steps, self.eos_threshold, emit_pcm16=self.transfer_pcm16,
+                    read_limit=read_limit, step_graphs=self.step_graphs,
                 )
             dispatched += seg
             if bulk:
@@ -651,6 +715,8 @@ class TTSModel:
                 yield frames, emit_s
             if bool(done):
                 break
+        if kept:
+            self._keep_batch_state(tree)
         for audio, emit in pending:
             with trace.span("generate.fetch"):
                 host = self._whole_batch(audio, emit, sharded)

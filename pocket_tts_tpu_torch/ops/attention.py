@@ -99,6 +99,25 @@ def quantize_kv_rows(x: torch.Tensor, amax: torch.Tensor | None = None) -> tuple
     return codes, scale
 
 
+def _row_writer(widx, C: int, T: int):
+    """write(dst, rows): rows [B, T, ...] into dst [B, C, ...] at cache row
+    widx, clamped to [0, C - T] as dynamic_update_slice clamps its start.
+    widx is a host int (a slice write) or a one-element integer tensor on
+    dst's device, read and clamped there, so that a captured CUDA graph
+    writes where each replay's index says."""
+    if isinstance(widx, torch.Tensor):
+        rows = widx.reshape(1).long().clamp(0, C - T) + torch.arange(T, device=widx.device)
+
+        def write(dst: torch.Tensor, src: torch.Tensor) -> None:
+            dst.index_copy_(1, rows, src)
+    else:
+        w = min(max(int(widx), 0), C - T)
+
+        def write(dst: torch.Tensor, src: torch.Tensor) -> None:
+            dst[:, w : w + T] = src
+    return write
+
+
 def _uniform(gen: torch.Generator, shape, bound: float, dtype) -> torch.Tensor:
     return ((torch.rand(shape, generator=gen, dtype=torch.float32) * 2 - 1) * bound).to(dtype)
 
@@ -162,7 +181,7 @@ class CausalKVAttention:
         x: torch.Tensor,  # [B, T, E]
         state: State,
         positions: torch.Tensor,  # int32 [B, T]: absolute positions, -1 = padding
-        widx: int,
+        widx,  # int, or an integer tensor of one element on the cache's device
         rope_cache: tuple,
         read_limit: int | None = None,
     ) -> torch.Tensor:
@@ -175,7 +194,7 @@ class CausalKVAttention:
         q, k, v = _project_qkv(params, x, self.num_heads, self.mesh)
         q, k = apply_rope(q, k, rope_cache)
         C = state["k"].shape[1]
-        w = min(max(int(widx), 0), C - T)  # dynamic_update_slice clamps its start
+        write = _row_writer(widx, C, T)
         int8_kv = state["k"].dtype == torch.int8
         if int8_kv:
             amax = (None, None)
@@ -183,14 +202,14 @@ class CausalKVAttention:
                 amax = max_over_tp(self.mesh, torch.stack([t.float().abs().amax(dim=(2, 3)) for t in (k, v)]))
             k_codes, k_scale = quantize_kv_rows(k, amax[0])
             v_codes, v_scale = quantize_kv_rows(v, amax[1])
-            state["k"][:, w : w + T] = k_codes
-            state["v"][:, w : w + T] = v_codes
-            state["k_scale"][:, w : w + T] = k_scale
-            state["v_scale"][:, w : w + T] = v_scale
+            write(state["k"], k_codes)
+            write(state["v"], v_codes)
+            write(state["k_scale"], k_scale)
+            write(state["v_scale"], v_scale)
         else:
-            state["k"][:, w : w + T] = k.to(state["k"].dtype)
-            state["v"][:, w : w + T] = v.to(state["v"].dtype)
-        state["slot_pos"][:, w : w + T] = positions.to(torch.int32)
+            write(state["k"], k.to(state["k"].dtype))
+            write(state["v"], v.to(state["v"].dtype))
+        write(state["slot_pos"], positions.to(torch.int32))
         R = C if read_limit is None else max(8, min(int(read_limit), C))
         sp = state["slot_pos"][:, :R]
         ks = state["k_scale"][:, :R] if int8_kv else None

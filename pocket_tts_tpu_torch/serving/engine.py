@@ -49,7 +49,9 @@ JAX engine's host mirrors do. Every decode step attends over the whole cache
 capacity, as the JAX engine's segment program does. On a card every batch
 decode attention (slots > 1, or any slot on a mesh) goes through
 ops/batch_attention's CUDA kernel, and one slot off a mesh decodes through
-the B=1 kernels.
+the B=1 kernels. Off a mesh, slots > 1 decode on the card by replaying the
+model's captured step (models/step_graph.py), bound to the FlowLM caches:
+compaction rewrites them in place, so only growth captures anew.
 
 With the span recorder on (utils/trace.py), each tick of run() or step()
 is an `engine.tick` span holding `engine.admit` (planning), `engine.apply`
@@ -1228,12 +1230,14 @@ class TTSEngine:
 
     def _op_grow(self, capacity: int) -> None:
         fl = self.model.flow_lm
+        self.model.step_graphs.forget(self.flow_state["transformer"])  # bound to the buffers growth replaces
         self.flow_state = fl.expand_state(self.flow_state, capacity)
         if self.preempt:
             self._store_flow = fl.expand_state(self._store_flow, capacity)
         self._voice_cache.clear()  # cached voices are padded to the old size
 
     def _op_compact(self, new_written: int) -> None:
+        # In place: the decode step captured on these buffers replays on.
         self.flow_state = self.model.flow_lm.compact_state(self.flow_state, new_written)
 
     def _op_park(self, slots: list[int], lanes: list[int]) -> None:
@@ -1300,7 +1304,7 @@ class TTSEngine:
         noise = host_to_device(noise[:, self._lo : self._hi].contiguous(), self.device)
         self.flow_state, self.mimi_state, self.carry, audio, emit, _ = run_segment(
             model.flow_lm, model.mimi, model.params, self.flow_state, self.mimi_state, self.carry, noise,
-            model.lsd_decode_steps, model.eos_threshold, emit_pcm16=self.emit_pcm16,
+            model.lsd_decode_steps, model.eos_threshold, emit_pcm16=self.emit_pcm16, step_graphs=model.step_graphs,
         )
         self.frames_dispatched += frames
         if fetch is not None:
