@@ -7,7 +7,7 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases (any failure exits non-zero and prints no result line):
   1. card name and power limit (nvidia-smi); CUDA must be available;
-  2. build the five CUDA sources from pocket_tts_tpu_torch/csrc with nvcc
+  2. build the six CUDA sources from pocket_tts_tpu_torch/csrc with nvcc
      (sm_90a), all at once, and print each kernel's registers, shared
      memory and spills, and the cooperative grid (blocks per SM), phase
      count and work split of fused_backbone_step and fused_segment_decode
@@ -49,7 +49,9 @@ Phases (any failure exits non-zero and prints no result line):
      returns finite audio of whole 1920-sample frames; the read limit takes
      two values below capacity in (a); batch_decode_attention launches 6
      times per decoded frame (every batch decode attention went through the
-     kernel); copy_state leaves the voices bit-identical;
+     kernel); int8_linear launches 24 times in the text prefill and 25 per
+     decoded frame (every int8 linear went through the kernel, graph
+     replays counted); copy_state leaves the voices bit-identical;
   7. batch timings beside the card's name and power limit: the batch kernel's
      device time per call (torch.profiler kernel times, the mean over the
      records received; one kernel per call),
@@ -62,7 +64,11 @@ Phases (any failure exits non-zero and prints no result line):
      (bf16 and int8); the B=64 device ms per decode step
      and per frame of a 64-frame segment (CUDA events); the aggregate
      real-time factor of generate_audio_batch at B=64 (median of warm runs);
-     a torch.profiler breakdown of one warm B=64 run;
+     a torch.profiler breakdown of one warm B=64 run; the int8 linear kernel
+     against its plain version (TOL_INT8_LINEAR) and timed at M=64 at each
+     shape of a b6369a24 frame, over the frame's 25 calls (75.5 MB of
+     distinct codes), and at M=8192, N=4096, K=1024, beside its bound, its
+     plain version (cast, float32 GEMM, scale) and torch.mm on bf16 codes;
   8. the probes: row_write bit-equal to its plain version at (64, 1024) for
      rows 0, 7, 8, 13, 63 and at (65536, 1024), only that row changed;
      head_slice_weighted_sum within 1e-5 relative of its plain version on
@@ -145,7 +151,9 @@ Phases (any failure exits non-zero and prints no result line):
      b6369a24 in int8 through load_model(mesh=...) and generate_audio_batch
      of its 8 texts at temperature 0 with bf16 and with int8 KV caches
      (each rank decodes 4 streams on 8 of the 16 heads through
-     batch_decode_attention, 6 launches a frame on every rank, and launches
+     batch_decode_attention, 6 launches a frame on every rank, every int8
+     linear through int8_linear, 24 in the prefill and 25 a frame, the
+     row-parallel out_proj and linear2 on its unscaled route, and launches
      no B=1 kernel), and one float32 train step of its FlowLM at B=8 x
      (32 + 125); the parent process holds each against the same model
      unsharded on the card (audio within TOL_MESH_AUDIO of each stream's
@@ -258,6 +266,14 @@ TOL_MESH_AUDIO = {"bf16": TOL_BATCH["bf16"], "int8": TOL_BATCH["int8"]}
 TRAIN_STEPS = 20  # AdamW steps at B=8, 32 text tokens, 125 latent frames
 TRAIN_WINDOW = 3  # further steps under torch.profiler
 READ_RATE_LIMIT = 1.05 * HBM_BYTES_PER_S  # a faster read than this is a fault of the probe
+BF16_OPS_PER_S = 989e12  # H100 SXM bf16 dense on the tensor cores (the int8 linear kernel's MMAs)
+# The b6369a24 FlowLM's int8 linears of one decode frame: (name, N, K, calls a frame).
+INT8_FRAME = (("in_proj", 3072, 1024, 6), ("out_proj", 1024, 1024, 6), ("linear1", 4096, 1024, 6),
+              ("linear2", 1024, 4096, 6), ("input_linear", 1024, 32, 1))
+INT8_PREFILL = (8192, 4096, 1024)  # (M, N, K) of the timed prefill shape (linear1 over 64 x 128 rows)
+# int8_linear against its plain version, relative to the largest |output|:
+# both sum the same exact float32 products (bf16 x int8) in another order.
+TOL_INT8_LINEAR = 1e-5
 SERVER_TEXTS = [" ".join(BATCH_WORDS[: 6 + (i * 7) % 10]).capitalize() + "." for i in range(48)]
 
 
@@ -313,7 +329,7 @@ def main() -> None:
     from pocket_tts_tpu_torch.ops.fused_segment import fused_segment_decode, fused_segment_decode_reference
 
     # ---------------------------------------------------------------- phase 2
-    sources = ("fused_backbone", "fused_segment", "batch_attention", "probes", "read_probes")
+    sources = ("fused_backbone", "fused_segment", "batch_attention", "probes", "read_probes", "int8_linear")
     t0 = time.monotonic()
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, all started together
         list(pool.map(_cuda.library, sources))
@@ -593,6 +609,10 @@ def main() -> None:
         torch, dev, card, batch_decode_attention, batch_decode_attention_reference)
     library = {"batch_decode_attention": library}
     batch_timings(torch, model, card, device_ms)
+    lin = int8_linear_phase(torch, dev, card)
+    errs["int8_linear"], bounds["int8_linear"] = lin["err"], (lin["frame"]["bound_ms"], "bytes")
+    timings["int8_linear"] = (lin["frame"]["kernel_ms"], lin["frame"]["plain_ms"])
+    library["int8_linear"] = lin["frame"]["library_ms"]
 
     # ---------------------------------------------------------------- phase 8
     probe = probes_phase(torch, dev, card)
@@ -639,7 +659,7 @@ def main() -> None:
     # ---------------------------------------------------------------- phase 15
     del model
     torch.cuda.empty_cache()
-    mesh_launches, mesh_err = mesh_phase(torch, card)
+    mesh_launches, mesh_linears, mesh_err = mesh_phase(torch, card)
     errs["batch_decode_attention"] = max(errs["batch_decode_attention"], mesh_err)
     print(f"chip_smoke.py wall time: {time.monotonic() - t_start:.1f} s [{card}]", flush=True)
 
@@ -672,6 +692,9 @@ def main() -> None:
               read["launches"]["stream_read"]),
         entry("kv_read_sum", "pocket_tts_tpu_torch/csrc/read_probes.cu", "benchmarks/attn_micro.py:201",
               read["launches"]["kv_read_sum"]),
+        entry("int8_linear", "pocket_tts_tpu_torch/csrc/int8_linear.cu",
+              "none (XLA dot_general, pocket_tts_tpu/ops/linear.py:32); times: one decode frame's 25 calls at M=64",
+              batch["int8_linear"] + mesh_linears),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -776,17 +799,18 @@ def batch_path(torch, model, card, batch_kernel, step_kernel, segment_kernel) ->
     import numpy as np
 
     from pocket_tts_tpu_torch.models.tts_model import TTSModel
+    from pocket_tts_tpu_torch.ops.linear import int8_linear
 
     t0 = time.monotonic()
     model8 = TTSModel.load_model(param_dtype="int8", device="cuda", seed=0, eos_threshold=1e9, kv_int8=True)
     print(f"load_model(int8, kv_int8=True): {time.monotonic() - t0:.1f} s", flush=True)
-    total = 0
+    total = linear_total = 0
     runs = (("a", model, BATCH_TEXTS, ["alba"]), ("b", model8, BATCH_TEXTS, ["alba"]),
             ("c", model, BATCH_TEXTS[-4:], BATCH_VOICES))
     for tag, m, texts, voice_names in runs:
         voices = [m.get_state_for_audio_prompt(name) for name in voice_names]
         snapshots = [copy.deepcopy(v.tree) for v in voices]
-        batch_kernel.launches = step_kernel.launches = segment_kernel.launches = 0
+        batch_kernel.launches = step_kernel.launches = segment_kernel.launches = int8_linear.launches = 0
         t0 = time.monotonic()
         outs = m.generate_audio_batch(voices[0] if len(voices) == 1 else voices, texts)
         torch.cuda.synchronize()
@@ -804,6 +828,12 @@ def batch_path(torch, model, card, batch_kernel, step_kernel, segment_kernel) ->
         ):
             fail(f"batch ({tag}): every stream must return finite audio of whole 1920-sample frames")
         layers = m.flow_lm.config.transformer.num_layers
+        linears = 4 * layers + (4 * layers + 1) * gen["frames"]  # the text prefill's, then 25 a frame
+        print(f"batch ({tag}): int8_linear launches {int8_linear.launches} (expected {linears}: "
+              f"{4 * layers} in the prefill, {4 * layers + 1} a frame, graph replays counted)", flush=True)
+        if int8_linear.launches != linears:
+            fail(f"batch ({tag}): {int8_linear.launches} int8_linear launches; every int8 linear must launch it")
+        linear_total += int8_linear.launches
         if n_launches != layers * gen["frames"] or step_kernel.launches or segment_kernel.launches:
             fail(f"batch ({tag}): {n_launches} batch kernel launches for {gen['frames']} frames x {layers} layers "
                  f"(B=1 kernels {step_kernel.launches}, {segment_kernel.launches})")
@@ -812,7 +842,7 @@ def batch_path(torch, model, card, batch_kernel, step_kernel, segment_kernel) ->
         for v, snap in zip(voices, snapshots):
             if not all(torch.equal(x, y) for x, y in zip(_tensors(v.tree), _tensors(snap))):
                 fail(f"batch ({tag}): generate_audio_batch changed a voice state")
-    return {"launches": total, "model_kv_int8": model8}
+    return {"launches": total, "int8_linear": linear_total, "model_kv_int8": model8}
 
 
 def kernel_profile(torch, fn, reps: int, name: str) -> tuple[float, int]:
@@ -983,6 +1013,118 @@ def batch_timings(torch, model, card, device_ms) -> None:
     print(f"B=64 decode: {step_ms:.3f} ms per decode step (FlowLM, {gen['capacity']}-row cache read whole), "
           f"{seg_ms:.3f} ms per frame of a 64-frame segment (FlowLM + Mimi), CUDA events, warm [{card}]",
           flush=True)
+
+
+def _int8_kernel_ms(torch, fn, reps: int) -> tuple[float, int]:
+    """Device ms per int8_linear kernel over `reps` calls of fn (which may
+    launch several), as torch.profiler delivered them: the mean over the
+    kernel records received, and their count. Fails on another kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = _kernel_events(torch, prof.key_averages())
+    mine = [e for e in events if "int8_linear" in e.key]
+    others = sorted({e.key for e in events} - {e.key for e in mine})
+    records = sum(e.count for e in mine)
+    if others or not records:
+        fail(f"int8_linear: {records} kernel records, other kernels {others}")
+    return sum(e.self_device_time_total for e in mine) / records / 1e3, records
+
+
+def int8_linear_phase(torch, dev, card) -> dict:
+    """The int8 linear kernel against its plain version and timed: at M=64
+    (a 64-stream decode step) every shape of a b6369a24 frame, and at
+    INT8_PREFILL, float32 activations as the int8 models run them. Each
+    shape cycles through enough distinct code matrices to pass the 50 MB
+    L2, as a frame's 75.5 MB of codes do; the frame's 25 calls run on 25
+    distinct matrices. Kernel times by torch.profiler; the plain version
+    (the old form: cast, float32 GEMM, scale) and torch.mm on bf16 codes (the
+    library yardstick; the port never calls it) by CUDA-graph walls.
+    Bound: the larger of the bytes (codes, x and y once) at 3.35 TB/s and
+    the operations at 989 TFLOP/s bf16. -> {"err", "frame": {...},
+    "prefill": {...}}."""
+    from pocket_tts_tpu_torch.ops.linear import int8_linear, int8_linear_reference
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def operands(M, N, K, copies):
+        x = torch.randn(M, K, generator=gen, device=dev)
+        qs = [torch.randint(-127, 128, (N, K), generator=gen, device=dev, dtype=torch.int8) for _ in range(copies)]
+        ss = [torch.rand(N, generator=gen, device=dev) * 1e-2 for _ in range(copies)]
+        return x, qs, ss
+
+    def cycle(fn, x, qs, ss):
+        i = [0]
+
+        def run():
+            fn(x, qs[i[0] % len(qs)], ss[i[0] % len(qs)])
+            i[0] += 1
+        return run
+
+    def bound_ms(M, N, K):
+        nbytes, ops = N * K + N * 4 + M * K * 4 + M * N * 4, 2 * M * N * K
+        return max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3
+
+    def library(x, q):
+        xb, qb = x.to(torch.bfloat16), q.to(torch.bfloat16)
+        return lambda: torch.mm(xb, qb.t())
+
+    err, shapes = 0.0, {}
+    for name, N, K, per_frame in INT8_FRAME:
+        x, qs, ss = operands(64, N, K, min(64, -(-64 * 2**20 // (N * K))))
+        y, ref = int8_linear(x, qs[0], ss[0]), int8_linear_reference(x, qs[0], ss[0])
+        err = max(err, max_err(y, ref) / float(ref.abs().max()))
+        ms, records = _int8_kernel_ms(torch, cycle(int8_linear, x, qs, ss), 2 * len(qs))
+        shapes[name] = {"N": N, "K": K, "calls": per_frame, "ms": ms, "records": records,
+                        "bound_ms": bound_ms(64, N, K)}
+    frame = [operands(64, N, K, 1) for name, N, K, n in INT8_FRAME for _ in range(n)]
+
+    def frame_fn(fn):
+        return lambda: [fn(x, qs[0], ss[0]) for x, qs, ss in frame]
+
+    libraries = [library(x, qs[0]) for x, qs, _ in frame]  # bf16 copies made once, outside the timing
+    frame_ms, records = _int8_kernel_ms(torch, frame_fn(int8_linear), 8)
+    result = {"shapes": shapes, "frame": {
+        "kernel_ms": frame_ms * 25, "records": records,
+        "bound_ms": sum(bound_ms(64, N, K) * n for _, N, K, n in INT8_FRAME),
+        "graph_ms": graph_ms(torch, frame_fn(int8_linear), calls=1),
+        "plain_ms": graph_ms(torch, frame_fn(int8_linear_reference), calls=1, replays=3),
+        "library_ms": graph_ms(torch, lambda: [f() for f in libraries], calls=1)}}
+    M, N, K = INT8_PREFILL
+    x, qs, ss = operands(M, N, K, 1)
+    y, ref = int8_linear(x, qs[0], ss[0]), int8_linear_reference(x, qs[0], ss[0])
+    err = max(err, max_err(y, ref) / float(ref.abs().max()))
+    del y, ref
+    ms, records = _int8_kernel_ms(torch, cycle(int8_linear, x, qs, ss), 20)
+    result["prefill"] = {"M": M, "N": N, "K": K, "ms": ms, "records": records, "bound_ms": bound_ms(M, N, K),
+                         "tflops": 2 * M * N * K / ms / 1e9,
+                         "plain_ms": graph_ms(torch, lambda: int8_linear_reference(x, qs[0], ss[0]), calls=2,
+                                              replays=3),
+                         "library_ms": graph_ms(torch, library(x, qs[0]), calls=10, replays=5)}
+    result["err"] = err
+    if err > TOL_INT8_LINEAR:
+        fail(f"int8_linear: max |err| {err:.3g} of the largest output, above {TOL_INT8_LINEAR}")
+    for name, t in shapes.items():
+        print(f"int8_linear {name} M=64 N={t['N']} K={t['K']} ({t['calls']} a frame): {t['ms'] * 1e3:.2f} us/call of "
+              f"device time (mean of {t['records']} records; codes cycled past the L2), bound "
+              f"{t['bound_ms'] * 1e3:.2f} us ({t['bound_ms'] / t['ms']:.0%}) [{card}]", flush=True)
+    f = result["frame"]
+    print(f"int8_linear one decode frame at M=64 (25 calls, 75.5 MB of codes): {f['kernel_ms'] * 1e3:.1f} us of kernel "
+          f"time ({f['records']} records of 8 frames), {f['graph_ms'] * 1e3:.1f} us device wall in a CUDA graph; bound "
+          f"{f['bound_ms'] * 1e3:.1f} us; plain version (cast + float32 GEMM + scale) {f['plain_ms'] * 1e3:.1f} us, "
+          f"torch.mm on bf16 codes {f['library_ms'] * 1e3:.1f} us (graph walls) [{card}]", flush=True)
+    p = result["prefill"]
+    print(f"int8_linear prefill M={M} N={N} K={K} float32 x: {p['ms'] * 1e3:.1f} us of device time "
+          f"({p['tflops']:.0f} TFLOP/s, {p['tflops'] / (BF16_OPS_PER_S / 1e12):.1%} of 989 bf16; mean of "
+          f"{p['records']} records), bound {p['bound_ms'] * 1e3:.1f} us; plain version {p['plain_ms'] * 1e3:.1f} us, "
+          f"torch.mm on bf16 codes {p['library_ms'] * 1e3:.1f} us (graph walls); max |err| {err:.2e} of the largest "
+          f"output [{card}]", flush=True)
+    return result
 
 
 def probes_phase(torch, dev, card) -> dict:
@@ -1616,13 +1758,13 @@ def divergence(errs: list) -> str:
             f"{'none' if first is None else first} of {len(errs)}")
 
 
-def mesh_phase(torch, card) -> tuple[int, float]:
+def mesh_phase(torch, card) -> tuple[int, int, float]:
     """Phase 15: dryrun_multichip(4) on 4 ranks sharing the card, and its
     sharded generate_audio_batch and train step held against the same model
     unsharded in this process; the batch kernel held against its plain
     version on a rank's heads at the capacity and read limits the ranks
-    decoded with. Returns the batch kernel's launches on the ranks and its
-    largest error here."""
+    decoded with. Returns the batch kernel's and int8_linear's launches on
+    the ranks and the batch kernel's largest error here."""
     from unittest import mock
 
     import numpy as np
@@ -1649,7 +1791,7 @@ def mesh_phase(torch, card) -> tuple[int, float]:
     print(f"mesh: dryrun_multichip(4) {wall:.1f} s in all (spawn, kernel builds, model loads included); rank 0 walls: "
           f"{walls} [{label}; {card}]", flush=True)
     dev = torch.device("cuda")
-    layers, frames, total, kernel_err = 6, out["frames"], 0, 0.0
+    layers, frames, total, linear_total, kernel_err = 6, out["frames"], 0, 0, 0.0
     for kv in ("bf16", "int8"):
         per_rank = [r[kv] for r in out["launches"]]
         print(f"mesh ({kv} KV): batch_decode_attention launches per rank "
@@ -1660,6 +1802,14 @@ def mesh_phase(torch, card) -> tuple[int, float]:
                for r in per_rank):
             fail(f"mesh ({kv} KV): every rank must attend through batch_decode_attention at every decode step "
                  f"and launch no B=1 kernel: {per_rank}")
+        # Every int8 linear of a rank through the kernel: the text prefill's 4 a layer, then 4 a layer and
+        # input_linear a frame; out_proj and linear2 (row-parallel) on its unscaled route, summed over tp.
+        linears = 4 * layers + (4 * layers + 1) * frames
+        print(f"mesh ({kv} KV): int8_linear launches per rank {[r['int8_linear'] for r in per_rank]}, expected "
+              f"{linears} (half the layers' on the unscaled route)", flush=True)
+        if any(r["int8_linear"] != linears for r in per_rank):
+            fail(f"mesh ({kv} KV): every int8 linear of every rank must go through int8_linear: {per_rank}")
+        linear_total += sum(r["int8_linear"] for r in per_rank)
         total += sum(r["batch_decode_attention"] for r in per_rank)
         model = TTSModel.load_model(temp=0.0, eos_threshold=1e9, param_dtype="int8", device="cuda",
                                     kv_int8=kv == "int8")
@@ -1738,7 +1888,7 @@ def mesh_phase(torch, card) -> tuple[int, float]:
         fail(f"mesh train step: loss rel {loss_rel:.3g}, gradient {grad_rel:.3g} at {worst}")
     del state
     torch.cuda.empty_cache()
-    return total, kernel_err
+    return total, linear_total, kernel_err
 
 
 def mesh_engine_check(torch, out, model, label, card) -> int:

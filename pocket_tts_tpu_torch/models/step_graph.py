@@ -1,7 +1,7 @@
 """The batch decode step (B > 1) as the replay of a captured CUDA graph.
 
 The plain step of B streams (FlowLMModel.backbone_step and flow_step: the
-GEMMs with their int8 casts, the batch attention kernel, the flow head) is
+int8 linear kernel, the batch attention kernel, the flow head) is
 several hundred kernels launched from Python, which takes the host longer
 than the card takes to run them. StepGraphs captures that step once per key
 and replays it: per frame the host copies the noise row into the graph's
@@ -28,8 +28,8 @@ frames replay. The graph's inputs and outputs are its own static buffers
 outside any pool, so every graph shares one memory pool, which holds the
 intermediates of the largest step (66 MiB for b6369a24 in int8 at B=64 with
 int8 KV, on an H100 80GB). The first capture of a process also pays for the
-first use of the batch attention kernel in its warm-up frame, the nvcc build
-included where build/kernels/ holds none yet.
+first use of the batch attention and int8 linear kernels in its warm-up
+frame, their nvcc builds included where build/kernels/ holds none yet.
 
 A replay launches the graph through libcuda's cuGraphLaunch, bound with
 ctypes.PyDLL so that the call keeps the GIL (CUDAGraph.replay lets it go).
@@ -41,10 +41,10 @@ holds the GIL, so a launch that holds it too never overlaps it. The step
 draws no random numbers (its noise is an input), so the generator prologue
 of CUDAGraph.replay has nothing to do.
 
-Kernel wrappers count no launch while a graph is captured
-(ops/_cuda.count_launch); each replay adds what the step launches to the
-counter, as utils/timing.best_seconds does: one batch_decode_attention per
-layer, where the attention takes the kernel (batch_attention.kernel_takes).
+Kernel wrappers count no launch while a graph is captured; the capture
+tallies them per wrapper (ops/_cuda.captured_launches) and each replay adds
+that tally to the wrappers' counters: at b6369a24 in int8, 6
+batch_decode_attention and 25 int8_linear launches a frame.
 Counters: `captures`, `replays`, and `eager_steps` (batch steps on the card
 decoded eagerly: warm-up frames, mesh steps); no benchmark metric reads
 them. With the span recorder on (utils/trace.py), run_segment sets the
@@ -61,7 +61,7 @@ import threading
 
 import torch
 
-from pocket_tts_tpu_torch.ops.batch_attention import batch_decode_attention, kernel_takes
+from pocket_tts_tpu_torch.ops import _cuda
 from pocket_tts_tpu_torch.utils.transfer import host_to_device
 
 
@@ -83,12 +83,12 @@ def _launch(graph: torch.cuda.CUDAGraph) -> None:
 class _Step:
     """One captured step: its static inputs (latent, BOS flags, noise, and
     the positions followed by the write index) and outputs (the next latent,
-    written into `latent`, and the EOS flags); `launches`, the
-    batch_decode_attention launches of one step."""
+    written into `latent`, and the EOS flags); `launches`, {kernel wrapper:
+    launches} of one replay."""
 
     __slots__ = ("graph", "latent", "bos", "noise", "index", "eos", "launches")
 
-    def __init__(self, latent: torch.Tensor, launches: int):
+    def __init__(self, latent: torch.Tensor):
         B, ldim = latent.shape
         self.graph = None
         self.latent = torch.empty_like(latent)
@@ -96,7 +96,7 @@ class _Step:
         self.noise = torch.empty(B, ldim, dtype=torch.float32, device=latent.device)
         self.index = torch.empty(B + 1, dtype=torch.int32, device=latent.device)
         self.eos = torch.empty(B, dtype=torch.bool, device=latent.device)
-        self.launches = launches
+        self.launches = {}
 
 
 class StepGraphs:
@@ -143,9 +143,7 @@ class StepGraphs:
         with self._lock:
             step = self._steps.get(key)
             if step is None:
-                k = tstate["layers"][0]["k"]
-                launches = len(tstate["layers"]) if k.is_cuda and kernel_takes(k.shape[-1], k.device) else 0
-                step = self._steps[key] = _Step(latent, launches)
+                step = self._steps[key] = _Step(latent)
                 while len(self._steps) > self.MAX_GRAPHS:
                     self._steps.popitem(last=False)
 
@@ -174,7 +172,8 @@ class StepGraphs:
                 self._capture(step, run)
             else:
                 self._replay(step.graph)
-                batch_decode_attention.launches += step.launches
+                for wrapper, n in step.launches.items():
+                    wrapper.launches += n
                 self.replays += 1
                 replayed += 1
             latents[i].copy_(step.latent)
@@ -197,8 +196,10 @@ class StepGraphs:
             torch.cuda.current_stream().wait_stream(self._side)
             self.eager_steps += 1
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
+            with _cuda.captured_launches() as launches, \
+                    torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
                 run()
+            step.launches = launches
             if self._pool is None:
                 self._pool = graph.pool()
         step.graph = graph

@@ -9,8 +9,11 @@ loads at once. Nothing here runs at import time.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import hashlib
+import threading
 import os
 import shutil
 import subprocess
@@ -98,20 +101,49 @@ def check_device() -> None:
         raise RuntimeError(f"the kernels are built for sm_90a (Hopper); this card is sm_{major}{minor}")
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (cached)."""
+    return _sm_count(device.index if device.index is not None else torch.cuda.current_device())
+
+
 def stream_ptr() -> int:
     return torch.cuda.current_stream().cuda_stream
+
+
+_captured = threading.local()  # .counts: {wrapper: launches} of the capture under way on this thread
 
 
 def count_launch(wrapper) -> bool:
     """Add one to `wrapper.launches` for the kernel it just launched, and
     say whether it counted. Under CUDA graph capture a kernel is not
-    launched but becomes a node of the graph, so nothing is counted; the
-    graph launches it at each replay, and the code that replays the graph
-    counts those launches (utils/timing.best_seconds)."""
+    launched but becomes a node of the graph, so nothing is counted (inside
+    `captured_launches` it is tallied there); the graph launches it at each
+    replay, and the code that replays the graph counts those launches
+    (models/step_graph.py, utils/timing.best_seconds)."""
     if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        counts = getattr(_captured, "counts", None)
+        if counts is not None:
+            counts[wrapper] = counts.get(wrapper, 0) + 1
         return False
     wrapper.launches += 1
     return True
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Yield {wrapper: launches} of the kernels that a CUDA graph captured
+    on this thread inside the block holds: what each replay launches."""
+    previous = getattr(_captured, "counts", None)
+    _captured.counts = counts = {}
+    try:
+        yield counts
+    finally:
+        _captured.counts = previous
 
 
 _P = ctypes.c_void_p
@@ -172,4 +204,6 @@ _SIGNATURES = {
     "ptt_stream_read": ([_P, _I, _I, _I, _P, _P, _I, _P], _I),
     # (kflat, vflat, rows, tok, out, grid, stream)
     "ptt_kv_read_sum": ([_P, _P, _I, _P, _P, _I, _P], _I),
+    # (x, x_kind, q, s, y, y_bf16, M, N, K, tile, split, stream)
+    "ptt_int8_linear": ([_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
 }

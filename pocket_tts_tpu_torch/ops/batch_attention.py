@@ -135,11 +135,6 @@ def launch_config(work_items: int, sms: int, read_rows: int, dtype) -> tuple[int
     raise AssertionError("unreachable")
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def kernel_takes(head_dim: int, device: torch.device) -> bool:
     """Whether a batch decode of heads `head_dim` wide (the model's config)
     on `device` attends through batch_decode_attention: on the CPU always
@@ -227,7 +222,7 @@ def batch_decode_attention(q, k, v, slot_pos, qpos, k_scale=None, v_scale=None, 
                              "16-byte aligned (the row scales are copied as tiles)")
         sc_stride, ks_ptr, vs_ptr = k_scale.stride(0), k_scale.data_ptr(), v_scale.data_ptr()
     threads, stages, split, chunk, smem = launch_config(
-        B * H, _sm_count(k.device.index if k.device.index is not None else 0), R, k.dtype)
+        B * H, _cuda.sm_count(k.device), R, k.dtype)
     out = torch.empty(B, H, d, dtype=q.dtype, device=k.device)
     err = _cuda.library("batch_attention").ptt_batch_decode_attention(
         q.data_ptr(), _Q_KINDS[q.dtype], q.stride(0), q.stride(1), k.data_ptr(), v.data_ptr(), _KINDS[k.dtype],

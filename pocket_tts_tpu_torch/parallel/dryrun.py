@@ -91,7 +91,7 @@ ENGINE_TEXTS = [f"Dry run stream number {i}." for i in range(8)]
 CHURN_TEXT = "Churn arrival while saturated."
 RESUME_STEPS = 8  # the parked stream resumes within this many steps
 MAX_SESSION_STEPS = 200
-KERNELS = ("batch_decode_attention", "fused_backbone_step", "fused_segment_decode")
+KERNELS = ("batch_decode_attention", "fused_backbone_step", "fused_segment_decode", "int8_linear")
 
 
 def _pick_mesh_shape(n_devices: int) -> tuple[int, int]:
@@ -116,10 +116,10 @@ def train_batch(n_bins: int, ldim: int, B: int, Tt: int, Tl: int, seed: int):
 
 
 def _launches() -> dict:
-    from pocket_tts_tpu_torch.ops import batch_attention, fused_backbone, fused_segment
+    from pocket_tts_tpu_torch.ops import batch_attention, fused_backbone, fused_segment, linear
 
     fns = (batch_attention.batch_decode_attention, fused_backbone.fused_backbone_step,
-           fused_segment.fused_segment_decode)
+           fused_segment.fused_segment_decode, linear.int8_linear)
     return {name: fn.launches for name, fn in zip(KERNELS, fns)}
 
 
